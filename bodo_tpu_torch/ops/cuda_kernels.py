@@ -30,23 +30,20 @@ CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 
 # kernel name -> CUDA source under csrc/
-SOURCES = {"lut_gather": "lut_gather.cu"}
+SOURCES = {"lut_gather": "lut_gather.cu", "hash_probe": "hash_probe.cu"}
+_P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 # kernel name -> (C entry point, ctypes argument types); pointers and the
 # stream are c_void_p so ctypes passes them at full width
 _ENTRIES = {
-    "lut_gather": ("lut_gather_launch",
-                   [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                    ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]),
+    "lut_gather": ("lut_gather_launch", [_P, _P, _P, _I64, _P]),
+    # h, step, probe codes, build codes, owner, ok, idx, flag,
+    # n, bcap, n_codes, T, max_rounds, stream
+    "hash_probe": ("hash_probe_launch",
+                   [_P, _P, _P, _P, _P, _P, _P, _P,
+                    _I64, _I64, _I, _I64, _I, _P]),
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-
-# the reference's slot gate for the LUT gather (pallas_kernels.py:28
-# MAX_MATMUL_SLOTS), kept so both packages dispatch alike; the LUT is
-# staged in 16 KB of shared memory at this size. The reference's second
-# bound (values below 2^24, an artifact of its f32 one-hot product) does
-# not apply to a direct gather and is dropped.
-MAX_LUT_SLOTS = 4096
 
 # launches per kernel since the last reset_launches()
 launches: Dict[str, int] = {name: 0 for name in SOURCES}
@@ -134,35 +131,131 @@ def lut_gather_plain(codes: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
     return lut[codes.long()]
 
 
+def _on_one_cuda_device(name: str, tensors) -> torch.device:
+    """The CUDA device all `tensors` share, else raise: a wrapper given
+    tensors that are not all on the CPU launches its kernel or fails."""
+    devs = {t.device for t in tensors}
+    if len(devs) != 1 or next(iter(devs)).type != "cuda":
+        raise ValueError(f"{name}: tensors on {sorted(map(str, devs))} "
+                         f"must share one CUDA device")
+    return next(iter(devs))
+
+
+def _check(name: str, t: torch.Tensor, dtype: torch.dtype, dim: int):
+    if t.dtype != dtype:
+        raise TypeError(f"{name} takes {dtype}, got {t.dtype}")
+    if t.dim() != dim or not t.is_contiguous():
+        raise ValueError(f"{name} takes a contiguous {dim}-D tensor, got "
+                         f"shape {tuple(t.shape)}")
+
+
+def _launch(name: str, dev: torch.device, *args) -> None:
+    fn = _entry(name)
+    with torch.cuda.device(dev):
+        rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+    launches[name] += 1
+
+
 def lut_gather(codes: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
-    """out[i] = lut[codes[i]]: int32 codes in [0, K), int32 lut of
-    1 <= K <= MAX_LUT_SLOTS entries. CPU tensors take the plain version;
-    CUDA tensors launch the kernel (csrc/lut_gather.cu) or raise."""
+    """out[i] = lut[codes[i]]: int32 codes in [0, K), int32 lut of K >= 1
+    entries. CPU tensors take the plain version; CUDA tensors launch the
+    kernel (csrc/lut_gather.cu) or raise.
+
+    Every LUT the dense join admits (up to dense_join_max_slots = 2^22)
+    goes through the kernel. The reference's 4096-slot gate
+    (pallas_kernels.py:28, applied at relational.py:1404-1406) chose
+    between its one-hot MXU kernel and XLA's gather, two spellings of
+    one function; it was the MXU's limit, not Hopper's."""
     if codes.device.type == "cpu" and lut.device.type == "cpu":
         return lut_gather_plain(codes, lut)
-    if not (codes.is_cuda and lut.is_cuda and codes.device == lut.device):
-        raise ValueError(f"lut_gather: codes on {codes.device} and lut on "
-                         f"{lut.device} must share one CUDA device")
-    if codes.dtype != torch.int32 or lut.dtype != torch.int32:
-        raise TypeError(f"lut_gather takes int32 codes and lut, got "
-                        f"{codes.dtype} and {lut.dtype}")
-    if codes.dim() != 1 or lut.dim() != 1:
-        raise ValueError("lut_gather takes 1-D codes and lut")
-    if not (codes.is_contiguous() and lut.is_contiguous()):
-        raise ValueError("lut_gather takes contiguous codes and lut")
+    dev = _on_one_cuda_device("lut_gather", (codes, lut))
+    _check("lut_gather codes", codes, torch.int32, 1)
+    _check("lut_gather lut", lut, torch.int32, 1)
     k = lut.shape[0]
-    if not 1 <= k <= MAX_LUT_SLOTS:
-        raise ValueError(f"lut_gather: LUT of {k} slots outside "
-                         f"[1, {MAX_LUT_SLOTS}]")
+    if not 1 <= k < 2 ** 31:
+        raise ValueError(f"lut_gather: LUT of {k} slots")
     out = torch.empty_like(codes)
     if codes.shape[0] == 0:
         return out
-    fn = _entry("lut_gather")
-    with torch.cuda.device(codes.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(codes.data_ptr(), lut.data_ptr(), out.data_ptr(),
-                codes.shape[0], k, stream)
-    if rc != 0:
-        raise RuntimeError(f"lut_gather launch failed: cudaError {rc}")
-    launches["lut_gather"] += 1
+    _launch("lut_gather", dev, codes.data_ptr(), lut.data_ptr(),
+            out.data_ptr(), codes.shape[0])
     return out
+
+
+# ---------------------------------------------------------------------------
+# hash_probe: replaces pallas_kernels.py:299 _hash_probe_kernel
+# (route hash_probe, :397, reached from hashtable.probe_slots)
+# ---------------------------------------------------------------------------
+
+def hash_probe_plain(build_codes: torch.Tensor, owner: torch.Tensor,
+                     probe_codes: torch.Tensor, ok: torch.Tensor,
+                     h: torch.Tensor, step: torch.Tensor, T: int,
+                     max_rounds: int):
+    """Plain PyTorch version of the kernel: the JAX package's lock-step
+    probe loop (bodo_tpu/ops/hashtable.py:248-269). Each round every
+    still-walking row reads owner[(h + r*step) & (T-1)]: an empty slot is
+    a miss, an owner whose codes all equal the row's is a hit."""
+    mask = T - 1
+    idx = torch.full(ok.shape, -1, dtype=torch.int32, device=ok.device)
+    active = ok.clone()
+    r = 0
+    while r < max_rounds and bool(active.any()):
+        o = owner[(h + r * step) & mask]
+        osafe = o.clamp(min=0).to(torch.int64)
+        eq = o >= 0
+        for bc, pc in zip(build_codes, probe_codes):
+            eq = eq & (bc[osafe] == pc)
+        hit = active & eq
+        idx = torch.where(hit, o, idx)
+        active = active & ~hit & (o >= 0)
+        r += 1
+    return idx, active.any()
+
+
+def hash_probe(build_codes: torch.Tensor, owner: torch.Tensor,
+               probe_codes: torch.Tensor, ok: torch.Tensor, h: torch.Tensor,
+               step: torch.Tensor, T: int, max_rounds: int):
+    """Open-addressing probe of `ok` rows into a claim table of T slots.
+
+    build_codes int64 [n_codes, bcap], owner int32 [T] (build row per
+    slot, -1 empty), probe_codes int64 [n_codes, N], ok bool [N], h and
+    step int64 [N] (the uint64 double-hash start and odd step, already
+    reduced mod T). Returns (idx int32 [N]: the build row with equal
+    codes, else -1; unresolved: a 0-d bool tensor, True when some ok row
+    was still walking after `max_rounds`). CPU tensors take the plain
+    version; CUDA tensors launch the kernel (csrc/hash_probe.cu) or
+    raise. Nothing syncs with the host."""
+    args = (build_codes, owner, probe_codes, ok, h, step)
+    if all(t.device.type == "cpu" for t in args):
+        return hash_probe_plain(*args, T, max_rounds)
+    dev = _on_one_cuda_device("hash_probe", args)
+    _check("hash_probe build_codes", build_codes, torch.int64, 2)
+    _check("hash_probe owner", owner, torch.int32, 1)
+    _check("hash_probe probe_codes", probe_codes, torch.int64, 2)
+    _check("hash_probe ok", ok, torch.bool, 1)
+    _check("hash_probe h", h, torch.int64, 1)
+    _check("hash_probe step", step, torch.int64, 1)
+    n_codes, n = probe_codes.shape
+    if build_codes.shape[0] != n_codes or n_codes < 1:
+        raise ValueError(f"hash_probe: {build_codes.shape[0]} build and "
+                         f"{n_codes} probe code columns")
+    if not (ok.shape[0] == h.shape[0] == step.shape[0] == n):
+        raise ValueError("hash_probe: ok, h, step and probe_codes differ "
+                         "in length")
+    if T < 16 or T & (T - 1) or owner.shape[0] != T:
+        raise ValueError(f"hash_probe: T={T} must be a power of two >= 16 "
+                         f"and the owner table's length "
+                         f"({owner.shape[0]})")
+    if not 0 <= max_rounds < 2 ** 31:
+        raise ValueError(f"hash_probe: max_rounds={max_rounds}")
+    idx = torch.empty(n, dtype=torch.int32, device=dev)
+    flag = torch.zeros(1, dtype=torch.int32, device=dev)
+    if n:
+        _launch("hash_probe", dev, h.data_ptr(), step.data_ptr(),
+                probe_codes.data_ptr(), build_codes.data_ptr(),
+                owner.data_ptr(), ok.data_ptr(), idx.data_ptr(),
+                flag.data_ptr(), n, build_codes.shape[1], n_codes, T,
+                max_rounds)
+    return idx, flag[0] != 0

@@ -1,11 +1,12 @@
 """Scatter-claim hash table: arbitrary-cardinality group ids without sorting.
 
-Counterpart of the claim side of bodo_tpu/ops/hashtable.py (`claim_slots`,
-`densify`, the hash helpers). All rows claim table slots in parallel with
-a scatter-min, and unresolved rows re-probe in lock-step rounds (double
-hashing). The 64-bit arithmetic runs on uint64 bits held in int64 tensors
-and is bit-identical to the JAX package, so both pick the same slots.
-The join probe (`probe_slots`) belongs to a later slice.
+Counterpart of bodo_tpu/ops/hashtable.py (`claim_slots`, `densify`, the
+join probe `probe_slots`, the key encodings). All rows claim table slots
+in parallel with a scatter-min, and unresolved rows re-probe in
+lock-step rounds (double hashing). The 64-bit arithmetic runs on uint64
+bits held in int64 tensors and is bit-identical to the JAX package, so
+both pick the same slots. The probe walk is the hand-written CUDA
+kernel `hash_probe` (ops/cuda_kernels.py) at every table size.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from typing import Sequence, Tuple
 
 import torch
 
+from bodo_tpu_torch.ops import cuda_kernels as CK
 from bodo_tpu_torch.ops import sort_encoding as SE
 from bodo_tpu_torch.ops.hashing import as_i64, shr
 
@@ -50,11 +52,26 @@ def encode_columns(key_arrays: Sequence[Tuple], null_equal: bool = True):
     """(codes, ok) for hashing/equality: one bijective 64-bit code per key
     column. With `null_equal`, nulls get an extra 0/1 code column; without,
     null-keyed rows drop out through `ok` (groupby dropna semantics)."""
+    return encode_columns_aligned(key_arrays, (False,) * len(key_arrays),
+                                  null_equal)
+
+
+def encode_columns_aligned(key_arrays: Sequence[Tuple],
+                           null_cols: Sequence[bool],
+                           null_equal: bool = True):
+    """Like encode_columns, with a caller-fixed per-key null-column layout
+    so the two sides of a join encode to structurally identical code
+    tuples even when only one side is nullable. `null_cols[i]` is True
+    when key i gets a null code column (the OR of both sides'
+    nullability, or True throughout)."""
     codes = []
     ok = None
-    for data, valid in key_arrays:
+    for (data, valid), want_null in zip(key_arrays, null_cols):
         enc = SE.encode_value(data)
         null = SE.null_flag(data, valid)
+        if null is None and want_null:
+            null = torch.zeros(data.shape, dtype=torch.bool,
+                               device=data.device)
         if null is not None:
             if null_equal:
                 codes.append(null.to(torch.int64))
@@ -63,6 +80,24 @@ def encode_columns(key_arrays: Sequence[Tuple], null_equal: bool = True):
                 ok = ~null if ok is None else (ok & ~null)
         codes.append(enc)
     return tuple(codes), ok
+
+
+def aligned_codes(probe_keys: Sequence[Tuple], build_keys: Sequence[Tuple],
+                  null_equal: bool):
+    """Encode two positionally aligned key sets into structurally
+    identical code tuples: build keys cast to the probe dtypes, one
+    null-column layout for both sides. Returns (pcodes, bcodes, p_ok,
+    b_ok), ok = None where no rows are excluded."""
+    bkeys = tuple((bd.to(pd_.dtype), bv)
+                  for (pd_, _pv), (bd, bv) in zip(probe_keys, build_keys))
+    null_cols = tuple(
+        SE.null_flag(pd_, pv) is not None
+        or SE.null_flag(bd, bv) is not None
+        for (pd_, pv), (bd, bv) in zip(probe_keys, bkeys))
+    bcodes, b_ok = encode_columns_aligned(bkeys, null_cols, null_equal)
+    pcodes, p_ok = encode_columns_aligned(probe_keys, null_cols,
+                                          null_equal)
+    return pcodes, bcodes, p_ok, b_ok
 
 
 def table_size(capacity: int) -> int:
@@ -129,3 +164,20 @@ def densify(slot, owner, T: int):
     dst = torch.where(present, newid, n).clamp(max=n).to(torch.int64)
     buf[dst] = owner.clamp(min=0)
     return seg.to(torch.int32), buf[:n], n_groups
+
+
+def probe_slots(build_codes: Sequence, owner, probe_codes: Sequence, ok,
+                T: int, max_rounds: int = MAX_ROUNDS):
+    """For each probe row, the build row with an equal key, else -1.
+
+    Follows claim_slots' double-hash sequence; a probe ends on a key
+    match (hit) or an empty slot (miss). Returns (idx int32[M],
+    unresolved 0-d bool tensor: some ok row was still walking after
+    `max_rounds`). Nothing here syncs with the host."""
+    mask = T - 1
+    h = combine_hash(probe_codes)
+    step = (_fmix64(h ^ _GOLD) | 1) & mask
+    h = h & mask
+    return CK.hash_probe(torch.stack(tuple(build_codes)), owner,
+                         torch.stack(tuple(probe_codes)), ok, h, step, T,
+                         max_rounds)

@@ -1,14 +1,16 @@
 """Table-level relational operators on one device.
 
 Counterpart of bodo_tpu/relational.py for replicated (REP) tables on one
-device: projection (`assign_columns`), `filter_table`, the dense-LUT
-equi-join, the dense / packed / hashed / sort groupby routes and
-`sort_table`. The gates are the JAX package's, checked in the same
-order, so both packages take the same route on the same data.
+device: projection (`assign_columns`), `filter_table`, the equi-join
+family (the dense-LUT join, the hash join, the sort join `_join_rep` by
+hash or sort gids; inner, left, right and outer), the dense / packed /
+hashed / sort groupby routes and `sort_table`. The gates are the JAX
+package's, checked in the same order, so both packages take the same
+route on the same data.
 
-Where the JAX package would go on to a route this slice has not ported
-(the hash join `_join_hash_try`, the sort join, right/outer/cross joins,
-row-sharded 1D tables) the port raises NotImplementedError naming it.
+Where the JAX package would go on to a route the port has not ported
+(the cross join, row-sharded 1D tables and their broadcast and shuffle
+joins) the port raises NotImplementedError naming it.
 
 `route_counts` counts the routes taken, so tests and the chip smoke can
 show which one ran.
@@ -23,14 +25,17 @@ import torch
 
 from bodo_tpu_torch.config import config
 from bodo_tpu_torch.ops import cuda_kernels as CK
+from bodo_tpu_torch.ops import hashtable as HT
 from bodo_tpu_torch.ops import kernels as K
 from bodo_tpu_torch.ops.groupby import (HASH_OPS, _segment_agg, agg_dtype,
                                         groupby_local, groupby_local_hashed,
                                         segment_sum)
+from bodo_tpu_torch.ops.join import join_count, join_local
 from bodo_tpu_torch.ops.sort import sort_local
 from bodo_tpu_torch.plan.expr import (ColRef, Expr, eval_expr, expr_range,
                                       infer_dtype)
 from bodo_tpu_torch.table import dtypes as dt
+from bodo_tpu_torch.table.dict_utils import unify_dictionaries
 from bodo_tpu_torch.table.table import Column, Table, round_capacity
 
 # shrink a table's capacity when occupancy falls below this (the JAX
@@ -39,8 +44,9 @@ REBUCKET_THRESHOLD = 0.45
 
 # route name -> times taken since the last reset_route_counts()
 route_counts: Dict[str, int] = {
-    "join_dense": 0, "groupby_dense": 0, "groupby_packed": 0,
-    "groupby_hashed": 0, "groupby_sort": 0, "sort_local": 0,
+    "join_dense": 0, "join_hash": 0, "join_rep_hash": 0, "join_rep_sort": 0,
+    "groupby_dense": 0, "groupby_packed": 0, "groupby_hashed": 0,
+    "groupby_sort": 0, "sort_local": 0,
 }
 
 
@@ -509,24 +515,40 @@ def _suffix_columns(left: Table, right: Table, left_on, right_on,
 
 def join_tables(left: Table, right: Table, left_on: Sequence[str],
                 right_on: Sequence[str], how: str = "inner",
-                suffixes=("_x", "_y")) -> Table:
-    """Equi-join (pandas merge: null keys match each other); the build
-    side is `right`. This slice ports the dense-LUT join for inner and
-    left joins."""
+                suffixes=("_x", "_y"), null_equal: bool = True) -> Table:
+    """Equi-join (pandas merge analogue); the build side is `right`.
+    how: inner / left / right / outer. null_equal=True gives pandas merge
+    semantics (null keys match each other); SQL passes False (null keys
+    never match). Routes, in the JAX package's order: the dense-LUT join,
+    the hash join, the sort join `_join_rep`."""
     left_on, right_on = list(left_on), list(right_on)
-    if how not in ("inner", "left"):
-        raise NotImplementedError(f"join how={how!r} is not ported yet")
+    if how not in ("inner", "left", "right", "outer", "cross"):
+        raise ValueError(f"join how={how!r} not supported")
+    if how == "cross" or not left_on:
+        raise NotImplementedError("the cross join (_cross_join) is not "
+                                  "ported yet")
+    if how == "right":
+        # right join = left join with the sides swapped; restore the
+        # pandas column order (left's columns first) afterwards
+        out = join_tables(right, left, right_on, left_on, "left",
+                          (suffixes[1], suffixes[0]), null_equal)
+        lmap, rmap = _suffix_columns(left, right, left_on, right_on,
+                                     suffixes)
+        names = [lmap[n] for n in left.names if lmap[n] in out.columns]
+        names += [rmap[n] for n in right.names
+                  if n in rmap and rmap[n] in out.columns]
+        return out.select(list(dict.fromkeys(names)))
+
+    # unify the dictionaries of string keys so codes compare, and align
+    # numeric key dtypes so hashing and comparison agree across sides
     left = left.with_columns(left.columns)
     right = right.with_columns(right.columns)
     for lk, rk in zip(left_on, right_on):
         lc, rc = left.columns[lk], right.columns[rk]
         if lc.dtype is dt.STRING or rc.dtype is dt.STRING:
-            if not (lc.dtype is rc.dtype and lc.dictionary is not None
-                    and rc.dictionary is not None
-                    and np.array_equal(lc.dictionary, rc.dictionary)):
-                raise NotImplementedError(
-                    "string join keys with different dictionaries "
-                    "(unify_dictionaries) are not ported yet")
+            _, (nl, nr) = unify_dictionaries([lc, rc])
+            left.columns[lk] = nl
+            right.columns[rk] = nr
         elif lc.dtype is not rc.dtype and dt.is_numeric(lc.dtype) and \
                 dt.is_numeric(rc.dtype):
             common = dt.common_numeric(lc.dtype, rc.dtype)
@@ -547,28 +569,31 @@ def join_tables(left: Table, right: Table, left_on: Sequence[str],
             if rc.dtype is not common:
                 right.columns[rk] = Column(rc.data.to(common.torch),
                                            rc.valid, common)
-    out = _join_dense_try(left, right, left_on, right_on, how, suffixes)
+    out = _join_dense_try(left, right, left_on, right_on, how, suffixes,
+                          null_equal)
     if out is not None:
         return out
-    if left_on and config.hash_join:
-        raise NotImplementedError("this join needs the hash join "
-                                  "(_join_hash_try), not ported yet")
-    raise NotImplementedError("this join needs the sort join (_join_rep), "
-                              "not ported yet")
+    out = _join_hash_try(left, right, left_on, right_on, how, suffixes,
+                         null_equal)
+    if out is not None:
+        return out
+    return _join_rep(left, right, left_on, right_on, how, suffixes,
+                     null_equal)
 
 
-def _join_dense_try(left, right, left_on, right_on, how,
-                    suffixes) -> Optional[Table]:
+def _join_dense_try(left, right, left_on, right_on, how, suffixes,
+                    null_equal: bool = True) -> Optional[Table]:
     """Dense-LUT equi-join: when the build (right) side's keys have a
     small host-known range and are unique, the join is a perfect-hash
     lookup — the build scatters row indices into a dense LUT, the probe
-    gathers (the `lut_gather` CUDA kernel for LUTs of at most 4096
-    slots). Output capacity == probe capacity. Returns None when not
-    applicable."""
+    gathers through the `lut_gather` CUDA kernel, at every LUT size the
+    gate admits. Output capacity == probe capacity. Returns None when
+    not applicable."""
     if how not in ("inner", "left") or right.nrows == 0 or \
             config.dense_join_max_slots <= 0:
         return None
-    if any(left.column(k).valid is not None for k in left_on) and \
+    if null_equal and \
+            any(left.column(k).valid is not None for k in left_on) and \
             any(right.column(k).valid is not None for k in right_on):
         # dense slots drop null keys; under pandas null-match semantics a
         # null-null pair would be missed when both sides hold nulls
@@ -597,9 +622,8 @@ def _join_dense_try(left, right, left_on, right_on, how,
         return None  # too large or too sparse: LUT cost would dominate
     sizes = tuple(int(hi) - int(lo) + 1 for lo, hi in ranges)
     los = tuple(int(lo) for lo, _ in ranges)
-    lorder = left_on + [n for n in left.names if n not in left_on]
-    rorder = right_on + [n for n in right.names if n not in right_on]
-    pa, ba = left.arrays(lorder), right.arrays(rorder)
+    lorder, rorder, pa, ba = _probe_build_arrays(left, right, left_on,
+                                                 right_on)
     nk = len(left_on)
     dev = right.device
 
@@ -617,43 +641,159 @@ def _join_dense_try(left, right, left_on, right_on, how,
     pslot, live = _dense_slots(pa[:nk], los, sizes,
                                K.row_mask(left.nrows, left.capacity, dev),
                                strict_range=True)
-    if n_slots <= CK.MAX_LUT_SLOTS:
-        g = CK.lut_gather(pslot, lut)
-    else:
-        g = lut[pslot.to(torch.int64)]
-    idx = torch.where(live, g, -1)
-    hit = idx >= 0
-    safe = idx.clamp(min=0).to(torch.int64)
-    out_b = [(d[safe], hit if v is None else (hit & v[safe])) for d, v in ba]
-    if how == "inner":
-        flat = []
-        for d, v in tuple(pa) + tuple(out_b):
-            flat.extend((d, v))
-        packed, nrows = K.compact(hit, tuple(flat))
-        pairs = [(packed[2 * i], packed[2 * i + 1])
-                 for i in range(len(flat) // 2)]
-        out_p, out_b = pairs[:len(pa)], pairs[len(pa):]
-    else:  # left join: every probe row stays; unmatched build cols invalid
-        out_p, nrows = list(pa), left.nrows
+    idx = torch.where(live, CK.lut_gather(pslot, lut), -1)
+    out_p, out_b, nrows = _gather_probe_matches(pa, ba, idx, how,
+                                                left.nrows)
     res = _assemble_join(left, right, left_on, right_on, lorder, rorder,
-                         out_p, out_b, nrows, suffixes)
+                         out_p, out_b, nrows, how, suffixes)
     route_counts["join_dense"] += 1
     return rebucket(res)
 
 
+def _gather_probe_matches(pa, ba, idx, how: str, pcount: int):
+    """Join output of a unique-build-key probe: `idx` holds each probe
+    row's build row, or -1. Inner keeps the matched probe rows (stable
+    compaction); left keeps every probe row, with the build columns
+    invalid where nothing matched. Returns (out_p, out_b, nrows)."""
+    hit = idx >= 0
+    safe = idx.clamp(min=0).to(torch.int64)
+    out_b = [(d[safe], hit if v is None else (hit & v[safe])) for d, v in ba]
+    if how != "inner":
+        return list(pa), out_b, pcount
+    flat = []
+    for d, v in tuple(pa) + tuple(out_b):
+        flat.extend((d, v))
+    packed, nrows = K.compact(hit, tuple(flat))
+    pairs = [(packed[2 * i], packed[2 * i + 1])
+             for i in range(len(flat) // 2)]
+    return pairs[:len(pa)], pairs[len(pa):], nrows
+
+
+def _join_hash_try(left, right, left_on, right_on, how, suffixes,
+                   null_equal: bool = True) -> Optional[Table]:
+    """Hash-LUT equi-join: the dense-LUT join freed from its key-range
+    gate. The build side claims slots in a scatter-claim hash table
+    (ops/hashtable.py) — its owner array is the LUT — and probe rows
+    follow the same double-hash sequence to a match or an empty slot
+    (`probe_slots`, the `hash_probe` CUDA kernel). Unique build keys
+    give at most one match per probe row, so the output keeps the probe
+    side's capacity. Returns None on duplicate build keys or probe-round
+    exhaustion (the caller goes on to the sort join).
+
+    The JAX package's `config.fusion_join` branch runs the same claim
+    behind a device-resident build cache; the port builds every time."""
+    if how not in ("inner", "left") or right.nrows == 0 or \
+            not config.hash_join:
+        return None
+    lorder, rorder, pa, ba = _probe_build_arrays(left, right, left_on,
+                                                 right_on)
+    nk = len(left_on)
+    dev = right.device
+    T = HT.table_size(right.capacity)
+    # an all-True null-column layout is always legal (a side without
+    # nulls gets a zero null code column), and it does not depend on the
+    # probe side
+    null_cols = (True,) * nk
+
+    bcodes, null_ok = HT.encode_columns_aligned(ba[:nk], null_cols,
+                                                null_equal)
+    ok = K.row_mask(right.nrows, right.capacity, dev)
+    if null_ok is not None:
+        ok = ok & null_ok
+    slot, owner, _r, unresolved = HT.claim_slots(bcodes, ok, T)
+    if unresolved or bool((segment_sum(torch.ones_like(slot), slot, T)
+                           > 1).any()):
+        return None  # duplicate build keys (or pathological probing)
+
+    pcodes, pnull_ok = HT.encode_columns_aligned(pa[:nk], null_cols,
+                                                 null_equal)
+    live = K.row_mask(left.nrows, left.capacity, dev)
+    if pnull_ok is not None:
+        live = live & pnull_ok
+    idx, p_unres = HT.probe_slots(bcodes, owner, pcodes, live, T)
+    if bool(p_unres):
+        return None
+    out_p, out_b, nrows = _gather_probe_matches(pa, ba, idx, how,
+                                                left.nrows)
+    res = _assemble_join(left, right, left_on, right_on, lorder, rorder,
+                         out_p, out_b, nrows, how, suffixes)
+    route_counts["join_hash"] += 1
+    return rebucket(res)
+
+
+def _probe_build_arrays(left, right, left_on, right_on):
+    lorder = left_on + [n for n in left.names if n not in left_on]
+    rorder = right_on + [n for n in right.names if n not in right_on]
+    return lorder, rorder, left.arrays(lorder), right.arrays(rorder)
+
+
 def _assemble_join(left, right, left_on, right_on, lorder, rorder,
-                   out_p, out_b, nrows, suffixes) -> Table:
+                   out_p, out_b, nrows, how, suffixes) -> Table:
     lmap, rmap = _suffix_columns(left, right, left_on, right_on, suffixes)
     cols: Dict[str, Column] = {}
-    for n, (d, v) in zip(lorder, out_p):
+    # full outer with a merged key column (same name both sides): pandas
+    # fills the key from the right side on build-only appended rows
+    merged_keys = {}
+    if how == "outer":
+        for i, (ln, rn) in enumerate(zip(left_on, right_on)):
+            if ln == rn:
+                merged_keys[ln] = i
+    for i, n in enumerate(lorder):
         src = left.column(n)
-        cols[lmap[n]] = Column(d, v, src.dtype, src.dictionary, src.vrange)
-    for n, (d, v) in zip(rorder, out_b):
-        if n in rmap:
-            src = right.column(n)
-            cols[rmap[n]] = Column(d, v, src.dtype, src.dictionary,
-                                   src.vrange)
+        d, v = out_p[i]
+        vr = src.vrange
+        if n in merged_keys:
+            ki = merged_keys[n]
+            bd, bv = out_b[ki]
+            d = torch.where(v, d, bd.to(d.dtype))
+            v = v | bv
+            # the merged column carries right-side values on build-only
+            # rows, so its bound is the union of both sides' (None if
+            # either side is unbounded)
+            rvr = right.column(right_on[ki]).vrange
+            if vr is not None and rvr is not None:
+                tight = (len(vr) > 2 and vr[2]) and (len(rvr) > 2
+                                                     and rvr[2])
+                vr = (min(vr[0], rvr[0]), max(vr[1], rvr[1]), tight)
+            else:
+                vr = None
+        cols[lmap[n]] = Column(d, v, src.dtype, src.dictionary, vr)
+    for i, n in enumerate(rorder):
+        if n not in rmap:
+            continue
+        src = right.column(n)
+        d, v = out_b[i]
+        cols[rmap[n]] = Column(d, v, src.dtype, src.dictionary, src.vrange)
     # pandas column order: left columns, then right columns
     names: List[str] = [lmap[n] for n in left.names] + \
         [rmap[n] for n in right.names if n in rmap]
     return Table(cols, nrows).select(names)
+
+
+def _join_rep(left, right, left_on, right_on, how, suffixes,
+              null_equal: bool = True) -> Table:
+    """The sort join (ops/join.py) of two replicated tables: gids by the
+    hash table (config.hash_join) or by the union sort, then the per-gid
+    expansion. A hash run whose probe hits its round cap is re-run by
+    sort; an output that overflows its capacity is re-run at the exact
+    size from join_count."""
+    lorder, rorder, pa, ba = _probe_build_arrays(left, right, left_on,
+                                                 right_on)
+    nk = len(left_on)
+    out_cap = round_capacity(max(left.nrows, right.nrows, 1))
+    method = "hash" if config.hash_join else "sort"
+    for _ in range(4):
+        out_p, out_b, cnt, ovf, unres = join_local(
+            pa, ba, left.nrows, right.nrows, nk, how, out_cap, null_equal,
+            method)
+        if method == "hash" and bool(unres):
+            method = "sort"  # pathological probe chains: sort safety net
+            continue
+        if not ovf:
+            break
+        total, _ = join_count(pa[:nk], ba[:nk], left.nrows, right.nrows,
+                              nk, how, null_equal, method)
+        out_cap = round_capacity(total)
+    route_counts[f"join_rep_{method}"] += 1
+    return _assemble_join(left, right, left_on, right_on, lorder, rorder,
+                          out_p, out_b, cnt, how, suffixes)

@@ -6,16 +6,30 @@
 Builds every CUDA kernel of the port from bodo_tpu_torch/csrc (one nvcc
 per source, all started together), then:
 
-  1. holds each kernel against its plain PyTorch version on the card
-     (bit-identical for lut_gather) and times both, and the PyTorch call
-     that computes the same function, at the shape the main path gives it;
-  2. drives the main path — the NYC-taxi relational pipeline at
-     20,000,000 trip rows (about one month of NYC HVFHV trips), made from
-     seed 0 — with the route and launch counts set to 0 just before it
-     and read just after, and checks the result against the numpy oracle
-     (keys and counts exact, avg_miles within rtol 1e-9: float64 sums
-     accumulated with atomics, in another order);
-  3. runs the same pipeline at 20,000 rows, which takes the packed/hashed
+  1. holds each kernel against its plain PyTorch version on the card,
+     bit-identical: lut_gather for LUTs of 1 to 2^22 slots (every size
+     the dense join admits), hash_probe for tables of 16 to 2^24 slots,
+     2 or 4 code columns, hit, miss and not-ok rows and an unresolved
+     walk; and times lut_gather, its plain version and the PyTorch call
+     that computes the same function;
+  2. drives the main paths, each with the route and launch counts set to
+     0 just before it and read just after:
+     - the NYC-taxi relational pipeline at 20,000,000 trip rows (about
+       one month of NYC HVFHV trips), through the dense-LUT join
+       (lut_gather) and the dense groupby, against its numpy oracle (keys
+       and counts exact, avg_miles within rtol 1e-9: float64 sums
+       accumulated with atomics, in another order);
+     - the star-schema join at 20,000,000 fact and 5,000,000 dimension
+       rows (bench.py's --suite join shape, about one month of TPC-H
+       SF10 lineitem against its orders), through the hash join
+       (hash_probe) and the dense groupby, against its numpy oracle (g
+       and c exact, s within rtol 1e-9); hash_probe is then held
+       against its plain version and timed on the inputs a run gave it;
+     - the four join kinds (inner, left, right, outer) of the dimension
+       against the fact table at 2,000,000 fact rows, whose duplicate
+       keys send them through the sort join by hash gids, each against a
+       numpy oracle by row multiset;
+  3. runs the taxi pipeline at 20,000 rows, which takes the packed/hashed
      groupby route, against the oracle.
 
 Any failure raises and exits non-zero. Without a CUDA device it exits
@@ -33,6 +47,9 @@ import time
 
 MAIN_ROWS = 20_000_000
 SMALL_ROWS = 20_000
+STAR_ROWS = 20_000_000     # fact rows; the dimension has a quarter
+MATRIX_ROWS = 2_000_000
+PROBE_ROWS = 13_333_333    # fact rows the star query's filter keeps
 SEED = 0
 AVG_RTOL = 1e-9
 # H100 SXM device-memory bandwidth (NVIDIA data sheet), for bound_ms
@@ -65,7 +82,8 @@ def check_lut_gather(dev):
 
     g = torch.Generator(device=dev).manual_seed(SEED)
     worst = 0
-    for k in (1, 182, 4096):
+    # up to 2^22 slots, the largest LUT the dense join admits
+    for k in (1, 182, 4096, 50_000, 65_536, 1 << 22):
         lut = torch.randint(-1, 1 << 30, (k,), generator=g, device=dev,
                             dtype=torch.int32)
         for n in (1, 511, 513, MAIN_ROWS):
@@ -82,27 +100,353 @@ def check_lut_gather(dev):
                 raise AssertionError(f"lut_gather differs from its plain "
                                      f"version at K={k} N={n}")
             worst = max(worst, diff)
-    k, n = 182, MAIN_ROWS
-    lut = torch.randint(-1, n, (k,), generator=g, device=dev,
-                        dtype=torch.int32)
-    codes = torch.randint(0, k, (n,), generator=g, device=dev,
-                          dtype=torch.int32)
-    kernel_ms = time_ms(lambda: CK.lut_gather(codes, lut))
-    plain_ms = time_ms(lambda: CK.lut_gather_plain(codes, lut))
-    library_ms = time_ms(lambda: lut[codes])
-    kernel_ms_again = time_ms(lambda: CK.lut_gather(codes, lut))
-    nbytes = 4 * n + 4 * n + 4 * k  # codes read, output written, LUT read
-    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    print(f"lut_gather timing K={k} N={n}: kernel_ms={kernel_ms:.6f} "
-          f"(again {kernel_ms_again:.6f}) plain_ms={plain_ms:.6f} "
-          f"library_ms(lut[codes])={library_ms:.6f} bound_ms={bound_ms:.6f} "
-          f"({nbytes} bytes at {HBM_BYTES_PER_S / 1e12} TB/s)")
+    rows = {}
+    # the taxi date join's shape first (the kernel line's numbers), then
+    # the largest LUT the dense join admits
+    for k in (182, 1 << 22):
+        n = MAIN_ROWS
+        lut = torch.randint(-1, n, (k,), generator=g, device=dev,
+                            dtype=torch.int32)
+        codes = torch.randint(0, k, (n,), generator=g, device=dev,
+                              dtype=torch.int32)
+        kernel_ms = time_ms(lambda: CK.lut_gather(codes, lut))
+        plain_ms = time_ms(lambda: CK.lut_gather_plain(codes, lut))
+        library_ms = time_ms(lambda: lut[codes])
+        kernel_ms_again = time_ms(lambda: CK.lut_gather(codes, lut))
+        nbytes = 4 * n + 4 * n + 4 * k  # codes read, output written, LUT
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        print(f"lut_gather timing K={k} N={n}: kernel_ms={kernel_ms:.6f} "
+              f"(again {kernel_ms_again:.6f}) plain_ms={plain_ms:.6f} "
+              f"library_ms(lut[codes])={library_ms:.6f} "
+              f"bound_ms={bound_ms:.6f} ({nbytes} bytes at "
+              f"{HBM_BYTES_PER_S / 1e12} TB/s)")
+        rows[k] = (kernel_ms, plain_ms, bound_ms, library_ms)
+        del lut, codes
+    kernel_ms, plain_ms, bound_ms, library_ms = rows[182]
     return {"name": "lut_gather", "route": "cuda",
             "source": "bodo_tpu_torch/csrc/lut_gather.cu",
             "replaces": "bodo_tpu/ops/pallas_kernels.py:171",
             "max_abs_err": worst, "ms": kernel_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": "bytes",
             "library_ms": library_ms}
+
+
+def _probe_case(dev, g, T: int, n_codes: int, bcap: int):
+    """Build codes (a 0/1 null-flag column, like a join's, then random
+    64-bit codes) claimed into a T-slot table by the port's claim_slots.
+    Returns (build codes [n_codes, bcap], owner)."""
+    import torch
+    from bodo_tpu_torch.ops import hashtable as HT
+    bcodes = torch.randint(-(1 << 62), 1 << 62, (n_codes, bcap),
+                           generator=g, device=dev, dtype=torch.int64)
+    bcodes[0] = torch.randint(0, 2, (bcap,), generator=g, device=dev)
+    bok = torch.rand(bcap, generator=g, device=dev) < 0.9
+    _slot, owner, _r, unresolved = HT.claim_slots(tuple(bcodes), bok, T)
+    assert not unresolved
+    return bcodes, owner
+
+
+def _probe_rows(dev, g, bcodes, n: int, T: int):
+    """n probe rows: a third hit a build key, a third differ from one in
+    one code (near miss), a third are random (miss); 15% are not ok.
+    Returns (probe codes [n_codes, n], ok, h, step) as probe_slots makes
+    them."""
+    import torch
+    from bodo_tpu_torch.ops import hashtable as HT
+    n_codes, bcap = bcodes.shape
+    rows = torch.randint(0, bcap, (n,), generator=g, device=dev)
+    pcodes = bcodes[:, rows].clone()
+    kind = torch.arange(n, device=dev) % 3
+    pcodes[n_codes - 1] ^= (kind == 1).to(torch.int64)
+    rnd = torch.randint(-(1 << 62), 1 << 62, (n_codes, n), generator=g,
+                        device=dev, dtype=torch.int64)
+    pcodes = torch.where(kind == 2, rnd, pcodes).contiguous()
+    ok = torch.rand(n, generator=g, device=dev) < 0.85
+    h = HT.combine_hash(tuple(pcodes))
+    step = (HT._fmix64(h ^ HT._GOLD) | 1) & (T - 1)
+    return pcodes, ok, h & (T - 1), step
+
+
+def check_hash_probe(dev):
+    """Phase 1 for hash_probe: bit-identity with its plain version for
+    every (T, N, n_codes) case, and one max_rounds=1 walk on a crowded
+    table whose unresolved flag must be raised and agree."""
+    import torch
+    from bodo_tpu_torch.ops import cuda_kernels as CK
+    from bodo_tpu_torch.ops import hashtable as HT
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    for T, bcap in ((16, 8), (4096, 2048), (1 << 24, STAR_ROWS // 4)):
+        for n_codes in (2, 4):
+            bcodes, owner = _probe_case(dev, g, T, n_codes, bcap)
+            for n in (1, 511, 513, PROBE_ROWS, STAR_ROWS):
+                pcodes, ok, h, step = _probe_rows(dev, g, bcodes, n, T)
+                args = (bcodes, owner, pcodes, ok, h, step, T, HT.MAX_ROUNDS)
+                idx, un = CK.hash_probe(*args)
+                want_idx, want_un = CK.hash_probe_plain(*args)
+                torch.cuda.synchronize()
+                same = (bool(torch.equal(idx, want_idx))
+                        and bool(un) == bool(want_un))
+                print(f"hash_probe T={T} n_codes={n_codes} N={n}: "
+                      f"bit_identical={same} hits={int((idx >= 0).sum())} "
+                      f"ok_rows={int(ok.sum())} unresolved={bool(un)}")
+                if not same or bool(un):
+                    raise AssertionError(f"hash_probe differs from its "
+                                         f"plain version at T={T} "
+                                         f"n_codes={n_codes} N={n}")
+            del bcodes, owner
+    T = 4096
+    bcodes, owner = _probe_case(dev, g, T, 2, T // 2)
+    pcodes, ok, h, step = _probe_rows(dev, g, bcodes, 4099, T)
+    args = (bcodes, owner, pcodes, ok, h, step, T, 1)
+    idx, un = CK.hash_probe(*args)
+    want_idx, want_un = CK.hash_probe_plain(*args)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(idx, want_idx)) and bool(un) == bool(want_un)
+    print(f"hash_probe T={T} max_rounds=1 (crowded): bit_identical={same} "
+          f"unresolved={bool(un)} (plain {bool(want_un)})")
+    if not (same and bool(un)):
+        raise AssertionError("hash_probe's unresolved walk differs from "
+                             "its plain version")
+
+
+def probe_walk(bcodes, owner, pcodes, ok, h, step, T: int, max_rounds: int):
+    """What the probe walk of these inputs must read: on an owned slot,
+    code column j only while the columns before it were equal. Returns
+    (bytes streamed: ok and idx for every row, h and step for each ok
+    row, a row's code j once the walk compares it; rounds walked; code
+    comparisons; distinct 32-byte sectors of the owner table; distinct
+    32-byte sectors of the build code columns)."""
+    import torch
+    mask = T - 1
+    n_codes, n = pcodes.shape
+    active = ok.clone()
+    rounds = compares = 0
+    compared = [torch.zeros_like(ok) for _ in range(n_codes)]
+    slots, owners = [], [[] for _ in range(n_codes)]
+    r = 0
+    while r < max_rounds and bool(active.any()):
+        p = (h + r * step) & mask
+        o = owner[p]
+        rounds += int(active.sum())
+        slots.append(p[active])
+        osafe = o.clamp(min=0).to(torch.int64)
+        eq = active & (o >= 0)
+        for j in range(n_codes):
+            compares += int(eq.sum())
+            compared[j] |= eq
+            owners[j].append(osafe[eq])
+            eq = eq & (bcodes[j][osafe] == pcodes[j])
+        active = active & ~eq & (o >= 0)
+        r += 1
+    streamed = (5 * n + 16 * int(ok.sum())
+                + 8 * sum(int(c.sum()) for c in compared))
+    owner_sectors = torch.unique(torch.cat(slots) // 8).numel()  # 4 B each
+    code_sectors = sum(torch.unique(torch.cat(o) // 4).numel()  # 8 B each
+                       for o in owners)
+    return streamed, rounds, compares, owner_sectors, code_sectors
+
+
+def time_hash_probe(args):
+    """Hold hash_probe against its plain version on the inputs the star
+    path gave it, time both there, and compute its bound from what this
+    run's walk reads."""
+    import torch
+    from bodo_tpu_torch.ops import cuda_kernels as CK
+    bcodes, owner, pcodes, ok, h, step, T, max_rounds = args
+    n_codes, n = pcodes.shape
+    idx, un = CK.hash_probe(*args)
+    want_idx, want_un = CK.hash_probe_plain(*args)
+    torch.cuda.synchronize()
+    err = int((idx.long() - want_idx.long()).abs().max())
+    same = bool(torch.equal(idx, want_idx)) and bool(un) == bool(want_un)
+    print(f"hash_probe (star path's call) T={T} N={n} n_codes={n_codes}: "
+          f"bit_identical={same} max_abs_diff={err} unresolved={bool(un)} "
+          f"(plain {bool(want_un)})")
+    if not same:
+        raise AssertionError("hash_probe differs from its plain version on "
+                             "the star path's inputs")
+    del idx, want_idx
+    kernel_ms = time_ms(lambda: CK.hash_probe(*args))
+    plain_ms = time_ms(lambda: CK.hash_probe_plain(*args), reps=5)
+    kernel_ms_again = time_ms(lambda: CK.hash_probe(*args))
+    streamed, rounds, compares, owner_sectors, code_sectors = \
+        probe_walk(*args)
+    n_ok = int(ok.sum())
+    # least bytes: every input the walks need read once — the streamed
+    # bytes and each owner and code sector the walks touch
+    nbytes = streamed + 32 * owner_sectors + 32 * code_sectors
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    # the random-access model: one sector per owner read and per code read
+    sector_bytes = streamed + 32 * rounds + 32 * compares
+    print(f"hash_probe timing (star path's call) T={T} N={n} ok_rows={n_ok} "
+          f"n_codes={n_codes}: kernel_ms={kernel_ms:.6f} (again "
+          f"{kernel_ms_again:.6f}) plain_ms={plain_ms:.6f} "
+          f"bound_ms={bound_ms:.6f} ({nbytes} bytes: {streamed} streamed, "
+          f"{owner_sectors} owner and {code_sectors} code sectors) "
+          f"mean_rounds={rounds / max(n_ok, 1):.6f} "
+          f"code_compares_per_row={compares / max(n_ok, 1):.6f} "
+          f"random_sector_bound_ms="
+          f"{sector_bytes / HBM_BYTES_PER_S * 1e3:.6f} "
+          f"({sector_bytes} bytes); library_ms=null (no single PyTorch "
+          f"call probes a hash table)")
+    return {"name": "hash_probe", "route": "cuda",
+            "source": "bodo_tpu_torch/csrc/hash_probe.cu",
+            "replaces": "bodo_tpu/ops/pallas_kernels.py:299",
+            "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}
+
+
+def run_star():
+    """Drive the star join at STAR_ROWS fact rows with the counts reset
+    just before and read just after; check it against the numpy oracle.
+    Returns (kernel launch counts of that run, the arguments of the
+    hash_probe launch of a later run, for timing)."""
+    import numpy as np
+    import torch
+    from bodo_tpu_torch import relational as R
+    from bodo_tpu_torch.ops import cuda_kernels as CK
+    from bodo_tpu_torch.workloads import star_join as S
+
+    t0 = time.perf_counter()
+    fact_np, dim_np = S.gen_star_arrays(STAR_ROWS, seed=SEED)
+    fact, dim = S.tables_from_arrays(fact_np, dim_np)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    R.reset_route_counts()
+    CK.reset_launches()
+    t0 = time.perf_counter()
+    out = S.pipeline(fact, dim)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    routes = dict(R.route_counts)
+    launches = dict(CK.launches)
+    peak = torch.cuda.max_memory_allocated()
+
+    t0 = time.perf_counter()
+    S.pipeline(fact, dim)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+
+    got = {n: out.column(n).data[:out.nrows].cpu().numpy()
+           for n in out.names}
+    t0 = time.perf_counter()
+    oracle = S.numpy_pipeline(fact_np, dim_np)
+    oracle_s = time.perf_counter() - t0
+    S.check_against(got, oracle, rtol=AVG_RTOL)
+    n_probe = int(np.count_nonzero(fact_np["y"] % 3 != 0))
+    print(f"star path: fact_rows={STAR_ROWS} dim_rows={len(dim_np['k'])} "
+          f"probe_rows={n_probe} groups={out.nrows} setup_s={setup_s:.3f} "
+          f"pipeline_s={wall_s:.4f} pipeline_warm_s={warm_s:.4f} "
+          f"max_memory_allocated={peak} numpy_oracle_s={oracle_s:.3f}")
+    print(f"star path: route_counts={routes} kernel_launches={launches}")
+    print(f"star path: matches the numpy oracle (g and c exact, s "
+          f"rtol={AVG_RTOL})")
+    missing = [r for r in ("join_hash", "groupby_dense") if routes[r] < 1]
+    if missing or launches["hash_probe"] < 1:
+        raise AssertionError(f"star path: routes {missing} not taken or "
+                             f"hash_probe not launched: {launches}")
+
+    # one more run, keeping the inputs of its hash_probe launch
+    captured = []
+    launch = CK.hash_probe
+
+    def keep(*args):
+        captured.append(args)
+        return launch(*args)
+
+    CK.hash_probe = keep
+    try:
+        S.pipeline(fact, dim)
+    finally:
+        CK.hash_probe = launch
+    return launches, captured[0]
+
+
+def _rows_matrix(cols):
+    """Rows of (data, valid) columns as one float64 matrix, NaN where a
+    value is null, sorted lexicographically (row multiset order)."""
+    import numpy as np
+    mat = np.stack([np.where(v, d.astype(np.float64), np.nan)
+                    for d, v in cols], axis=1)
+    return mat[np.lexsort(mat.T[::-1])]
+
+
+def _join_oracle(dim, fact, how):
+    """join_tables(dim, fact, ["k"], ["k"], how) rows, k g w v y, with
+    numpy: every (dim, fact) pair of equal keys, then the unmatched rows
+    of the side(s) the join keeps."""
+    import numpy as np
+    order = np.argsort(dim["k"], kind="stable")
+    sk = dim["k"][order]
+    pos = np.clip(np.searchsorted(sk, fact["k"]), 0, len(sk) - 1)
+    hit = sk[pos] == fact["k"]
+    d = order[pos[hit]]
+    ones = np.ones(int(hit.sum()), bool)
+    cols = [(fact["k"][hit], ones), (dim["g"][d], ones), (dim["w"][d], ones),
+            (fact["v"][hit], ones), (fact["y"][hit], ones)]
+    parts = [cols]
+    if how in ("left", "outer"):
+        lone = np.ones(len(dim["k"]), bool)
+        lone[d] = False
+        n = int(lone.sum())
+        t, f = np.ones(n, bool), np.zeros(n, bool)
+        parts.append([(dim["k"][lone], t), (dim["g"][lone], t),
+                      (dim["w"][lone], t), (np.zeros(n), f),
+                      (np.zeros(n), f)])
+    if how in ("right", "outer"):
+        n = int((~hit).sum())
+        t, f = np.ones(n, bool), np.zeros(n, bool)
+        parts.append([(fact["k"][~hit], t), (np.zeros(n), f),
+                      (np.zeros(n), f), (fact["v"][~hit], t),
+                      (fact["y"][~hit], t)])
+    return _rows_matrix([
+        (np.concatenate([p[i][0] for p in parts]),
+         np.concatenate([p[i][1] for p in parts])) for i in range(5)])
+
+
+def run_join_matrix():
+    """The four join kinds of the dimension (probe) against the fact table
+    (build, duplicate keys) at MATRIX_ROWS fact rows, each with the counts
+    reset just before and read just after, against the numpy oracle by
+    row multiset. The right join swaps the sides, so its build side is
+    the dimension, whose unique keys take the hash join."""
+    import numpy as np
+    import torch
+    from bodo_tpu_torch import relational as R
+    from bodo_tpu_torch.ops import cuda_kernels as CK
+    from bodo_tpu_torch.workloads import star_join as S
+
+    fact_np, dim_np = S.gen_star_arrays(MATRIX_ROWS, seed=SEED + 2)
+    fact, dim = S.tables_from_arrays(fact_np, dim_np)
+    want_route = {"inner": "join_rep_hash", "left": "join_rep_hash",
+                  "right": "join_hash", "outer": "join_rep_hash"}
+    for how, route in want_route.items():
+        R.reset_route_counts()
+        CK.reset_launches()
+        t0 = time.perf_counter()
+        out = R.join_tables(dim, fact, ["k"], ["k"], how)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        routes = {k: v for k, v in R.route_counts.items() if v}
+        launches = dict(CK.launches)
+        assert out.names == ["k", "g", "w", "v", "y"], out.names
+        n = out.nrows
+        got = _rows_matrix([
+            (out.column(c).data[:n].cpu().numpy(),
+             np.ones(n, bool) if out.column(c).valid is None
+             else out.column(c).valid[:n].cpu().numpy())
+            for c in out.names])
+        want = _join_oracle(dim_np, fact_np, how)
+        np.testing.assert_array_equal(got, want, err_msg=how)
+        print(f"join matrix {how}: rows={n} wall_s={wall_s:.4f} "
+              f"routes={routes} kernel_launches={launches}: matches the "
+              f"numpy oracle (row multiset)")
+        if routes != {route: 1} or launches["hash_probe"] < 1:
+            raise AssertionError(f"join matrix {how}: routes {routes}, "
+                                 f"launches {launches}")
 
 
 def run_taxi(n_rows: int, want_routes, label: str):
@@ -175,17 +519,26 @@ def main() -> int:
     print(f"build: {sorted(CK.SOURCES)} in {time.perf_counter() - t0:.2f}s")
     for name, log in sorted(CK.build_logs.items()):
         for line in log.splitlines():
-            if "registers" in line or "smem" in line or "error" in line:
+            if any(w in line for w in ("registers", "spill", "smem",
+                                       "error")):
                 print(f"build {name}: {line.strip()}")
 
-    kernels = [check_lut_gather(dev)]
-    launches = run_taxi(MAIN_ROWS, ("join_dense", "groupby_dense"),
-                        "main path")
+    lut = check_lut_gather(dev)
+    check_hash_probe(dev)
+    # each main path launches its kernel: lut_gather on the taxi path,
+    # hash_probe on the star path
+    lut["launches"] = run_taxi(MAIN_ROWS, ("join_dense", "groupby_dense"),
+                               "main path")["lut_gather"]
+    star_launches, probe_args = run_star()
+    probe = time_hash_probe(probe_args)
+    probe["launches"] = star_launches["hash_probe"]
+    del probe_args
+    kernels = [lut, probe]
     for k in kernels:
-        k["launches"] = launches[k["name"]]
         if k["launches"] < 1:
-            raise AssertionError(f"{k['name']} was not launched on the "
+            raise AssertionError(f"{k['name']} was not launched on its "
                                  f"main path")
+    run_join_matrix()
     run_taxi(SMALL_ROWS, ("join_dense", "groupby_hashed"), "small")
 
     order = ("name", "route", "source", "replaces", "launches",

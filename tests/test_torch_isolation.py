@@ -2,8 +2,8 @@
 neither JAX nor the JAX package (nor pandas/pyarrow, which only its
 readers and converters import when called); its entry points default to
 CUDA and raise without it instead of running on the CPU; the CUDA kernel
-wrapper never falls back to its plain version for a tensor that is not
-on the CPU. One test runs every check (see tests/torch_parity.py on why
+wrappers never fall back to their plain versions for a tensor that is
+not on the CPU. One test runs every check (see tests/torch_parity.py on why
 each test_torch_* file holds one test)."""
 
 import os
@@ -32,9 +32,11 @@ print("FORBIDDEN", bad)
 import torch
 if not torch.cuda.is_available():
     from bodo_tpu_torch.workloads.taxi import pipeline
+    from bodo_tpu_torch.workloads import star_join
     from bodo_tpu_torch.table import Table
     import numpy as np
     for call in (lambda: pipeline(sys.argv[1], sys.argv[2]),
+                 lambda: star_join.pipeline(*star_join.gen_star_arrays(10)),
                  lambda: Table.from_numpy({"a": np.arange(3)})):
         try:
             call()
@@ -87,19 +89,40 @@ def _check_lut_gather_never_falls_back_off_the_cpu():
     assert CK.launches == before
 
 
+def _check_hash_probe_never_falls_back_off_the_cpu():
+    import torch
+    from bodo_tpu_torch.ops import cuda_kernels as CK
+    before = dict(CK.launches)
+    i64 = torch.zeros(8, dtype=torch.int64)
+    args = (torch.zeros(2, 4, dtype=torch.int64),
+            torch.full((16,), -1, dtype=torch.int32),
+            torch.zeros(2, 8, dtype=torch.int64),
+            torch.ones(8, dtype=torch.bool), i64, i64)
+    for i in range(len(args)):
+        mixed = list(args)
+        mixed[i] = mixed[i].to("meta")
+        with pytest.raises(ValueError, match="CUDA"):
+            CK.hash_probe(*mixed, 16, 64)
+    idx, unresolved = CK.hash_probe(*args, 16, 64)  # all on the CPU
+    assert (idx == -1).all() and not bool(unresolved)
+    assert CK.launches == before
+
+
 def _check_kernel_build_is_lazy():
     """No kernel is built or loaded while the modules import: the build
     directory is keyed by source and flags, and nothing loaded it."""
     from bodo_tpu_torch.ops import cuda_kernels as CK
     assert CK._entry_fns == {} or all(
         CK.library_path(n).exists() for n in CK._entry_fns)
-    path = CK.library_path("lut_gather")
-    assert path.parent == REPO / "build"
-    assert path.name.startswith("liblut_gather.") and path.suffix == ".so"
+    for name in ("lut_gather", "hash_probe"):
+        path = CK.library_path(name)
+        assert path.parent == REPO / "build"
+        assert path.name.startswith(f"lib{name}.") and path.suffix == ".so"
 
 
 def test_port_stands_alone(torch_one_thread, tmp_path):
     _check_imports_no_jax_and_needs_cuda(tmp_path)
     _check_resolve_device_defaults_to_cuda()
     _check_lut_gather_never_falls_back_off_the_cpu()
+    _check_hash_probe_never_falls_back_off_the_cpu()
     _check_kernel_build_is_lazy()

@@ -1,6 +1,6 @@
 """The port's relational operators against bodo_tpu.relational on the same
 tables: each groupby route (dense, packed, hashed, sort), the dense-LUT
-join (LUTs inside and beyond the kernel's 4096 slots), sort_table,
+join (LUTs of 182 and 9,999 slots, both through lut_gather), sort_table,
 assign_columns and filter_table — with the same routes taken.
 
 One test runs every check (see tests/torch_parity.py on why each
@@ -137,10 +137,10 @@ def _check_join_unported_routes_raise():
     left = Table.from_pandas(pd.DataFrame({"k": [1, 2, 3]}), device="cpu")
     dup = Table.from_pandas(pd.DataFrame({"k": [1, 1], "y": [0, 1]}),
                             device="cpu")
-    with pytest.raises(NotImplementedError, match="_join_hash_try"):
-        PR.join_tables(left, dup, ["k"], ["k"])
-    with pytest.raises(NotImplementedError, match="outer"):
-        PR.join_tables(left, dup, ["k"], ["k"], "outer")
+    with pytest.raises(NotImplementedError, match="_cross_join"):
+        PR.join_tables(left, dup, [], [], "cross")
+    with pytest.raises(NotImplementedError, match="_cross_join"):
+        PR.join_tables(left, dup, [], [], "inner")
 
 
 def _sort_frame(r, n):

@@ -12,7 +12,10 @@ keeps at process level:
   - the active mesh.
 
 It also turns the reference's progcheck off (ROADMAP fault F1: progcheck
-breaks on this tree's jax). Kernels run in interpret mode only through an
+breaks on this tree's jax), and its fusion and fused-join caches off
+(config.fusion, config.fusion_join): the reference's hash join would
+otherwise keep its build table in `fusion_join._build_cache`, which
+would outlive the test in the worker. Kernels run in interpret mode only through an
 explicit `interpret=True`, never by flipping FORCE_INTERPRET. torch runs
 on one intra-op thread in these tests, so they add no more CPU load than
 any other test of the suite.
@@ -60,7 +63,10 @@ def reference_state():
     pk = (PK.FORCE_INTERPRET, PK._runtime_disabled, PK.trace_count,
           dict(PK.trace_counts))
     mesh = mesh_mod._active_mesh
-    config.progcheck = False  # an attribute: nothing is exported
+    # attributes: nothing is exported to the environment
+    config.progcheck = False
+    config.fusion = False
+    config.fusion_join = False
     try:
         yield
     finally:
@@ -86,6 +92,7 @@ def reference(torch_one_thread):
 # of the reference that takes that route
 _REF_ROUTES = {
     "join_dense": ("bodo_tpu.relational", "_join_dense_try"),
+    "join_hash": ("bodo_tpu.relational", "_join_hash_try"),
     "groupby_dense": ("bodo_tpu.relational", "_groupby_agg_dense"),
     "groupby_packed": ("bodo_tpu.relational", "_groupby_agg_packed"),
     "groupby_hashed": ("bodo_tpu.ops.groupby", "groupby_local_hashed"),
@@ -97,11 +104,31 @@ _REF_ROUTES = {
 @contextlib.contextmanager
 def reference_routes():
     """Count the routes the reference takes, under the port's route names.
-    A route counts when it produced the result: a dense join that found
-    the build side unfit (None) and an unresolved hash groupby do not."""
+    A route counts when it produced the result: a dense or hash join that
+    found the build side unfit (None) and an unresolved hash groupby do
+    not. `_join_rep` counts as join_rep_<method>, the method of its last
+    join_local call (hash, or sort after a hash run that did not
+    resolve)."""
     import importlib
+    import bodo_tpu.relational as ref_rel
     counts = {name: 0 for name in _REF_ROUTES}
+    counts.update(join_rep_hash=0, join_rep_sort=0)
     saved = []
+    last_method = ["sort"]
+
+    def join_local_spy(*a, _orig=ref_rel.join_local, **k):
+        last_method[0] = k.get("method", a[8] if len(a) > 8 else "sort")
+        return _orig(*a, **k)
+
+    def join_rep_spy(*a, _orig=ref_rel._join_rep, **k):
+        out = _orig(*a, **k)
+        counts[f"join_rep_{last_method[0]}"] += 1
+        return out
+
+    for fname, spy in (("join_local", join_local_spy),
+                       ("_join_rep", join_rep_spy)):
+        saved.append((ref_rel, fname, getattr(ref_rel, fname)))
+        setattr(ref_rel, fname, spy)
     for route, (modname, fname) in _REF_ROUTES.items():
         mod = importlib.import_module(modname)
         orig = getattr(mod, fname)
