@@ -6,7 +6,10 @@ the caller names another device.
 """
 
 from bodo_tpu_torch.config import config, resolve_device, set_config
+from bodo_tpu_torch.parallel.mesh import (get_mesh, make_mesh, set_mesh,
+                                          use_mesh)
 from bodo_tpu_torch.table import Column, Table, from_reference_arrays
 
 __all__ = ["Column", "Table", "config", "from_reference_arrays",
-           "resolve_device", "set_config"]
+           "get_mesh", "make_mesh", "resolve_device", "set_config",
+           "set_mesh", "use_mesh"]

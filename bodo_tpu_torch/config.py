@@ -1,9 +1,10 @@
 """Configuration of the relational path, and the device every entry point
 runs on.
 
-Only the fields the one-GPU relational path reads, with the JAX package's
-defaults (bodo_tpu/config.py), so both packages plan the same routes on
-the same data.
+Only the fields the relational path reads (on one device, and on
+row-sharded 1D tables), with the JAX package's defaults
+(bodo_tpu/config.py), so both packages plan the same routes on the same
+data.
 """
 
 from __future__ import annotations
@@ -26,6 +27,24 @@ class Config:
     hash_join: bool = True
     # Pack small-range multi-key groupby/sort keys into one int64.
     pack_keys: bool = True
+    # Skew headroom factor for the all_to_all shuffle bucket capacity.
+    shuffle_skew_factor: float = 2.0
+    # Broadcast join: a 1D build side of at most this many rows is
+    # gathered to every shard instead of hash-shuffled.
+    bcast_join_threshold: int = 1 << 20
+    # Sources with fewer rows stay replicated; larger ones are sharded.
+    shard_min_rows: int = 100_000
+    # Adaptive query execution (plan/adaptive.py): the broadcast decision
+    # and the skew-split detection before a shuffle join.
+    aqe: bool = True
+    # Broadcast byte budget as a fraction of the memory governor's; the
+    # port has no governor yet, so the rows-only rule decides.
+    aqe_bcast_frac: float = 0.05
+    # A sampled join/shuffle key owning at least this fraction of rows is
+    # hot.
+    aqe_skew_frac: float = 0.3
+    # Probe sides smaller than this skip skew detection.
+    aqe_skew_min_rows: int = 100_000
 
 
 config = Config()

@@ -30,7 +30,9 @@ CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 
 # kernel name -> CUDA source under csrc/
-SOURCES = {"lut_gather": "lut_gather.cu", "hash_probe": "hash_probe.cu"}
+SOURCES = {"lut_gather": "lut_gather.cu", "hash_probe": "hash_probe.cu",
+           "partition_rank": "partition_rank.cu",
+           "range_partition": "range_partition.cu"}
 _P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 # kernel name -> (C entry point, ctypes argument types); pointers and the
 # stream are c_void_p so ctypes passes them at full width
@@ -41,6 +43,12 @@ _ENTRIES = {
     "hash_probe": ("hash_probe_launch",
                    [_P, _P, _P, _P, _P, _P, _P, _P,
                     _I64, _I64, _I, _I64, _I, _P]),
+    # dest, ok, rank, counts, tile counts, n, k, tile, stream
+    "partition_rank": ("partition_rank_launch",
+                       [_P, _P, _P, _P, _P, _I64, _I, _I, _P]),
+    # pk, splitters, out, n, n_spl, stream
+    "range_partition": ("range_partition_launch",
+                        [_P, _P, _P, _I64, _I, _P]),
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -259,3 +267,120 @@ def hash_probe(build_codes: torch.Tensor, owner: torch.Tensor,
                 flag.data_ptr(), n, build_codes.shape[1], n_codes, T,
                 max_rounds)
     return idx, flag[0] != 0
+
+
+# ---------------------------------------------------------------------------
+# partition_rank: replaces pallas_kernels.py:432 _partition_rank_kernel
+# (route partition_rank, :509, reached from parallel/shuffle.bucket_rows)
+# ---------------------------------------------------------------------------
+
+# the kernel keeps a running count per bucket in 16 KB of shared memory
+PARTITION_MAX_BUCKETS = 4096
+
+
+def partition_rank_plain(dest: torch.Tensor, ok: torch.Tensor,
+                         num_buckets: int):
+    """Plain PyTorch version of the kernel: the JAX package's sort route
+    of bucket_rows (bodo_tpu/parallel/shuffle.py:73-79). A stable sort by
+    bucket puts each bucket's rows together in row order; a row's rank is
+    its position minus its bucket's first position."""
+    k = num_buckets
+    n = dest.shape[0]
+    live = ok & (dest >= 0) & (dest < k)
+    counts = torch.zeros(k + 1, dtype=torch.int32, device=dest.device)
+    if n == 0:
+        return torch.empty(0, dtype=torch.int32, device=dest.device), \
+            counts[:k]
+    key = torch.where(live, dest.to(torch.int64), k)
+    order = torch.sort(key, stable=True).indices
+    ks = key[order]
+    pos = torch.arange(n, device=dest.device)
+    is_new = (ks != torch.roll(ks, 1)) | (pos == 0)
+    start = torch.cummax(torch.where(is_new, pos, 0), 0).values
+    rank = torch.empty(n, dtype=torch.int32, device=dest.device)
+    rank[order] = (pos - start).to(torch.int32)
+    counts.index_add_(0, key, torch.ones_like(rank))
+    return torch.where(live, rank, -1), counts[:k]
+
+
+def partition_rank(dest: torch.Tensor, ok: torch.Tensor, num_buckets: int):
+    """Each ok row's stable rank inside its bucket `dest` (rows in row
+    order), and the ok rows of each bucket: int32 dest [N], bool ok [N],
+    K = num_buckets -> (rank int32 [N], -1 where a row is not ok or its
+    bucket is outside [0, K); counts int32 [K]). CPU tensors take the
+    plain version; CUDA tensors launch the kernel
+    (csrc/partition_rank.cu) or raise.
+
+    The reference gates its kernel to N < 2^24 rows (pallas_kernels.py
+    :518-519), the exactness limit of the TPU's f32 ranks; the CUDA
+    kernel counts in int32, so the port drops that gate, as it dropped
+    lut_gather's. Either way the result is the same: the reference's
+    sort route and its partition_rank route pack rows identically."""
+    if dest.device.type == "cpu" and ok.device.type == "cpu":
+        return partition_rank_plain(dest, ok, num_buckets)
+    dev = _on_one_cuda_device("partition_rank", (dest, ok))
+    _check("partition_rank dest", dest, torch.int32, 1)
+    _check("partition_rank ok", ok, torch.bool, 1)
+    k = num_buckets
+    n = dest.shape[0]
+    if ok.shape[0] != n:
+        raise ValueError("partition_rank: dest and ok differ in length")
+    if not 1 <= k <= PARTITION_MAX_BUCKETS:
+        raise ValueError(f"partition_rank: {k} buckets (the kernel takes "
+                         f"1 to {PARTITION_MAX_BUCKETS})")
+    if n >= 2 ** 31:
+        raise ValueError(f"partition_rank: {n} rows overflow int32 ranks")
+    rank = torch.empty(n, dtype=torch.int32, device=dev)
+    counts = torch.zeros(k, dtype=torch.int32, device=dev)
+    if n:
+        # a tile's rows per warp: at least twice the buckets, so the
+        # per-tile counts stay small next to the rows
+        tile = max(2048, -(-2 * k // 256) * 256)
+        n_tiles = -(-n // tile)
+        tile_counts = torch.empty(k * n_tiles, dtype=torch.int32,
+                                  device=dev)
+        _launch("partition_rank", dev, dest.data_ptr(), ok.data_ptr(),
+                rank.data_ptr(), counts.data_ptr(), tile_counts.data_ptr(),
+                n, k, tile)
+    return rank, counts
+
+
+# ---------------------------------------------------------------------------
+# range_partition: replaces pallas_kernels.py:654 _range_partition_kernel
+# (route range_partition, :701, reached from ops/sort.py's sample sort)
+# ---------------------------------------------------------------------------
+
+# the kernel stages the splitters in shared memory (32 KB)
+RANGE_MAX_SPLITTERS = 4096
+_SIGN64 = -(1 << 63)
+
+
+def range_partition_plain(pk: torch.Tensor, splitters: torch.Tensor):
+    """Plain PyTorch version of the kernel: torch.searchsorted on the
+    uint64 bits held in int64, with the sign bit flipped so that torch's
+    signed order is the unsigned order."""
+    return torch.searchsorted((splitters ^ _SIGN64).contiguous(),
+                              (pk ^ _SIGN64).contiguous(),
+                              right=True).to(torch.int32)
+
+
+def range_partition(pk: torch.Tensor, splitters: torch.Tensor):
+    """searchsorted(splitters, pk, side='right') over uint64 keys held in
+    int64 tensors: pk [N], splitters [n_spl] sorted ascending as unsigned
+    64-bit integers, n_spl <= 4096 -> int32 [N], the number of splitters
+    <= each key. CPU tensors take the plain version; CUDA tensors launch
+    the kernel (csrc/range_partition.cu) or raise."""
+    if pk.device.type == "cpu" and splitters.device.type == "cpu":
+        return range_partition_plain(pk, splitters)
+    dev = _on_one_cuda_device("range_partition", (pk, splitters))
+    _check("range_partition pk", pk, torch.int64, 1)
+    _check("range_partition splitters", splitters, torch.int64, 1)
+    n_spl = splitters.shape[0]
+    if n_spl > RANGE_MAX_SPLITTERS:
+        raise ValueError(f"range_partition: {n_spl} splitters (the kernel "
+                         f"takes at most {RANGE_MAX_SPLITTERS})")
+    out = torch.empty(pk.shape[0], dtype=torch.int32, device=dev)
+    if pk.shape[0]:
+        _launch("range_partition", dev, pk.data_ptr(), splitters.data_ptr(),
+                out.data_ptr(), pk.shape[0], n_spl)
+    return out

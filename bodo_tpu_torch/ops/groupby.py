@@ -2,10 +2,11 @@
 
 Counterpart of bodo_tpu/ops/groupby.py for the routes of the one-GPU
 relational path: segment reductions (`_segment_agg`) for size, count,
-sum and mean; the scatter-claim hash groupby (`groupby_local_hashed`);
-and the sort-based `groupby_local` that the JAX package itself takes when
-the hash route does not resolve. Other aggregations raise
-NotImplementedError until a later slice ports them.
+sum and mean; the scatter-claim hash groupby (`groupby_local_hashed`,
+and `groupby_local_hashed_static` for the partial stage of the two-phase
+sharded groupby); and the sort-based `groupby_local` that the JAX
+package itself takes when the hash route does not resolve. Other
+aggregations raise NotImplementedError until a later slice ports them.
 """
 
 from __future__ import annotations
@@ -29,6 +30,26 @@ HASH_OPS = frozenset({
     "m2", "m3", "m4", "skew", "kurt",
 })
 _PORTED = ("count", "size", "sum", "mean")
+
+# final op -> partial ops of the two-phase sharded groupby, and partial
+# op -> its combine op (the JAX package's tables, kept whole so both
+# packages route the same aggregations to the two-phase groupby; the
+# port computes the _PORTED ones)
+_VAR_PARTS = ["count", "sum64", "m2"]
+_SKEW_PARTS = ["count", "sum64", "m2", "m3"]
+_KURT_PARTS = ["count", "sum64", "m2", "m3", "m4"]
+DECOMPOSE = {
+    "sum": ["sum"], "sumnull": ["sumnull"], "prod": ["prod"],
+    "count": ["count"], "size": ["size"], "min": ["min"], "max": ["max"],
+    "first": ["first"], "last": ["last"], "mean": ["sum", "count"],
+    "var": _VAR_PARTS, "std": _VAR_PARTS, "var0": _VAR_PARTS,
+    "std0": _VAR_PARTS, "skew": _SKEW_PARTS, "kurt": _KURT_PARTS,
+}
+COMBINE_OF = {"sum": "sum", "sumnull": "sumnull", "sum64": "sum",
+              "m2": "chan_m2", "m3": "chan_m3", "m4": "chan_m4",
+              "count": "sum", "size": "sum",
+              "min": "min", "max": "max", "first": "first", "last": "last",
+              "prod": "prod"}
 
 
 def result_dtype(op: str, d: np.dtype) -> np.dtype:
@@ -194,6 +215,22 @@ def _hashed_sort_groups(gkeys, gvals, gvalid, out_capacity: int):
     out_vals = tuple((scatter(d), None if v is None else scatter(v))
                      for d, v in gvals)
     return out_keys, out_vals
+
+
+def groupby_local_hashed_static(arrays, count: int, specs: Tuple[str, ...],
+                                out_capacity: int, num_keys: int):
+    """The hash groupby with its group space fixed at `out_capacity` (the
+    row capacity) instead of sized from the group count: the partial
+    stage of the two-phase sharded groupby, as the JAX package runs it
+    inside its shard_map body. Returns (out_keys, out_vals, n_groups,
+    unresolved)."""
+    seg, group_row, ok, ng, unresolved = _hashed_claim(arrays[:num_keys],
+                                                       count)
+    gkeys, gvals, gvalid = _hashed_agg(arrays, seg, group_row, ok, specs,
+                                       num_keys, out_capacity)
+    out_keys, out_vals = _hashed_sort_groups(gkeys, gvals, gvalid,
+                                             out_capacity)
+    return out_keys, out_vals, ng, unresolved
 
 
 def groupby_local_hashed(arrays, count: int, specs: Tuple[str, ...],

@@ -16,6 +16,16 @@ def row_mask(count: int, capacity: int, device) -> torch.Tensor:
     return torch.arange(capacity, device=device) < count
 
 
+def shard_row_mask(counts, shard_capacity: int, device) -> torch.Tensor:
+    """Real-row mask of a row-sharded array: shard i's first counts[i]
+    rows of its block of `shard_capacity`."""
+    s = len(counts)
+    c = torch.as_tensor([int(x) for x in counts], dtype=torch.int64,
+                        device=device)
+    pos = torch.arange(shard_capacity, device=device)
+    return (pos[None, :] < c[:, None]).reshape(s * shard_capacity)
+
+
 def value_ok(data, valid, padmask):
     """Mask of rows whose value takes part in aggregation: real row AND
     not null (explicit mask or float NaN)."""

@@ -1,16 +1,26 @@
-"""Table-level relational operators on one device.
+"""Table-level relational operators.
 
-Counterpart of bodo_tpu/relational.py for replicated (REP) tables on one
-device: projection (`assign_columns`), `filter_table`, the equi-join
-family (the dense-LUT join, the hash join, the sort join `_join_rep` by
-hash or sort gids; inner, left, right and outer), the dense / packed /
-hashed / sort groupby routes and `sort_table`. The gates are the JAX
-package's, checked in the same order, so both packages take the same
-route on the same data.
+Counterpart of bodo_tpu/relational.py: projection (`assign_columns`),
+`filter_table`, the equi-join family, groupby and `sort_table`, over
+replicated (REP) tables and over row-sharded (1D) tables on a mesh of S
+shards (parallel/mesh.py).
+
+REP routes: the dense-LUT join, the hash join, the sort join `_join_rep`
+by hash or sort gids (inner, left, right and outer); the dense / packed
+/ hashed / sort groupby routes; the local sort. 1D routes: the broadcast
+join (`_join_broadcast`, a replicated build side) and the shuffle join
+(`_join_sharded` after `shuffle_by_key`), each a per-shard join_local;
+the two-phase groupby (parallel/shuffle.groupby_sharded); the sample
+sort (ops/sort.sort_sharded). Elementwise stages (projection, the
+filter's predicate) run on the whole global array; compaction and
+everything else runs per shard. The gates are the JAX package's, checked
+in the same order, so both packages take the same route on the same
+data.
 
 Where the JAX package would go on to a route the port has not ported
-(the cross join, row-sharded 1D tables and their broadcast and shuffle
-joins) the port raises NotImplementedError naming it.
+(the cross join, the colocated groupby of non-decomposable aggregations
+on 1D tables, the skew-split join, concat_tables) the port raises
+NotImplementedError naming it.
 
 `route_counts` counts the routes taken, so tests and the chip smoke can
 show which one ran.
@@ -27,16 +37,25 @@ from bodo_tpu_torch.config import config
 from bodo_tpu_torch.ops import cuda_kernels as CK
 from bodo_tpu_torch.ops import hashtable as HT
 from bodo_tpu_torch.ops import kernels as K
-from bodo_tpu_torch.ops.groupby import (HASH_OPS, _segment_agg, agg_dtype,
-                                        groupby_local, groupby_local_hashed,
-                                        segment_sum)
+from bodo_tpu_torch.ops.groupby import (DECOMPOSE, HASH_OPS, _segment_agg,
+                                        agg_dtype, groupby_local,
+                                        groupby_local_hashed, segment_sum)
+from bodo_tpu_torch.ops.hashing import dest_shard, hash_columns
 from bodo_tpu_torch.ops.join import join_count, join_local
-from bodo_tpu_torch.ops.sort import sort_local
+from bodo_tpu_torch.ops.sort import sort_local, sort_sharded
+from bodo_tpu_torch.parallel import collectives as C
+from bodo_tpu_torch.parallel import mesh as mesh_mod
+from bodo_tpu_torch.parallel.shuffle import (_concat_pairs,
+                                             _flatten_with_valids,
+                                             _rebuild_from_flat,
+                                             _shard_arrays, groupby_sharded,
+                                             shuffle_rows)
 from bodo_tpu_torch.plan.expr import (ColRef, Expr, eval_expr, expr_range,
                                       infer_dtype)
 from bodo_tpu_torch.table import dtypes as dt
 from bodo_tpu_torch.table.dict_utils import unify_dictionaries
-from bodo_tpu_torch.table.table import Column, Table, round_capacity
+from bodo_tpu_torch.table.table import (ONED, REP, Column, Table,
+                                        round_capacity)
 
 # shrink a table's capacity when occupancy falls below this (the JAX
 # package's default config.rebucket_threshold)
@@ -47,6 +66,8 @@ route_counts: Dict[str, int] = {
     "join_dense": 0, "join_hash": 0, "join_rep_hash": 0, "join_rep_sort": 0,
     "groupby_dense": 0, "groupby_packed": 0, "groupby_hashed": 0,
     "groupby_sort": 0, "sort_local": 0,
+    "join_broadcast": 0, "join_shuffle": 0, "groupby_sharded_hash": 0,
+    "groupby_sharded_sort": 0, "sort_sharded": 0,
 }
 
 
@@ -57,6 +78,21 @@ def reset_route_counts() -> None:
 
 def _schema(t: Table) -> Dict[str, dt.DType]:
     return {n: c.dtype for n, c in t.columns.items()}
+
+
+def _as_local(t: Table) -> Optional[Table]:
+    """A 1-shard 1D table is a local table: its REP view, so one-shard
+    runs skip the shuffle and combine stages."""
+    if t.distribution == ONED and t.num_shards == 1:
+        return Table(dict(t.columns), t.nrows, REP, None)
+    return None
+
+
+def _padmask(t: Table) -> torch.Tensor:
+    """Real-row mask of a table (per shard for a 1D table)."""
+    if t.distribution == ONED:
+        return K.shard_row_mask(t.counts, t.shard_capacity, t.device)
+    return K.row_mask(t.nrows, t.capacity, t.device)
 
 
 def _dicts(t: Table) -> Dict[str, np.ndarray]:
@@ -79,7 +115,21 @@ def _keep_vranges(res: Table, src: Table) -> Table:
 
 def shrink_to_fit(t: Table) -> Table:
     """Shrink the capacity to fit the rows (rows are compacted to the
-    front). The slices are copied so the old buffers are freed."""
+    front; of each shard, for a 1D table, which shrinks every shard to
+    fit the fullest). The slices are copied so the old buffers are
+    freed."""
+    if t.distribution == ONED:
+        s, old = t.num_shards, t.shard_capacity
+        new = round_capacity(int(t.counts.max()) if len(t.counts) else 1)
+        if new >= old:
+            return t
+
+        def cut(a):
+            return None if a is None else \
+                a.reshape(s, old)[:, :new].reshape(s * new)
+        tree = {n: (cut(c.data), cut(c.valid))
+                for n, c in t.columns.items()}
+        return t.with_arrays(tree, nrows=t.nrows, counts=t.counts)
     new = round_capacity(max(t.nrows, 1))
     if new >= t.capacity:
         return t
@@ -90,8 +140,12 @@ def shrink_to_fit(t: Table) -> Table:
 
 
 def rebucket(t: Table) -> Table:
-    """Shrink the capacity when occupancy drops below the threshold."""
-    if max(t.nrows, 1) / t.capacity >= REBUCKET_THRESHOLD:
+    """Shrink the capacity when occupancy drops below the threshold (a 1D
+    table's occupancy is its fullest shard's, times the shards)."""
+    occupancy_cap = (max(t.counts.max(), 1) * t.num_shards
+                     if t.distribution == ONED and len(t.counts)
+                     else max(t.nrows, 1))
+    if occupancy_cap / t.capacity >= REBUCKET_THRESHOLD:
         return t
     return shrink_to_fit(t)
 
@@ -120,7 +174,7 @@ def assign_columns(t: Table, new: Dict[str, Expr]) -> Table:
         else:
             cols[name] = Column(d, v, dtype, None,
                                 expr_range(e, t.columns))
-    return Table(cols, t.nrows)
+    return Table(cols, t.nrows, t.distribution, t.counts)
 
 
 def assign_categorical(t: Table, name: str, code_expr: Expr,
@@ -141,15 +195,31 @@ def category_code(categories: Sequence[str], value: str) -> int:
 
 
 def filter_table(t: Table, predicate: Expr) -> Table:
-    """Filter rows; a null predicate counts as False (SQL semantics)."""
+    """Filter rows; a null predicate counts as False (SQL semantics). A
+    1D table's rows are compacted within each shard."""
     mask, mv = eval_expr(predicate, _tree(t), _dicts(t), _schema(t))
     if mv is not None:
         mask = mask & mv
-    mask = mask & K.row_mask(t.nrows, t.capacity, t.device)
+    mask = mask & _padmask(t)
     names = t.names
     flat = []
     for n in names:
         flat.extend((t.columns[n].data, t.columns[n].valid))
+    if t.distribution == ONED:
+        s = t.num_shards
+        masks = C.shard_views(mask, s)
+        views = [C.shard_views(a, s) for a in flat]
+        parts, counts = [], []
+        for i in range(s):
+            out_i, cnt_i = K.compact(masks[i], tuple(v[i] for v in views))
+            parts.append(out_i)
+            counts.append(cnt_i)
+        out = [C.concat_shards([p[j] for p in parts])
+               for j in range(len(flat))]
+        tree = {n: (out[2 * i], out[2 * i + 1]) for i, n in enumerate(names)}
+        counts = np.array(counts, dtype=np.int64)
+        return _keep_vranges(rebucket(t.with_arrays(
+            tree, nrows=int(counts.sum()), counts=counts)), t)
     out, cnt = K.compact(mask, tuple(flat))
     tree = {n: (out[2 * i], out[2 * i + 1]) for i, n in enumerate(names)}
     return _keep_vranges(rebucket(t.with_arrays(tree, nrows=cnt)), t)
@@ -165,16 +235,25 @@ def _min_max(t: Table, names: Sequence[str]) -> Dict[str, Optional[tuple]]:
     `reduce_table` min/max, restricted to what the planners ask)."""
     if t.nrows == 0:
         return {k: (0, 0) for k in names}
-    padmask = K.row_mask(t.nrows, t.capacity, t.device)
+    padmask = _padmask(t)
+    s = t.num_shards
     out = {}
     for k in names:
         c = t.column(k)
         ok = K.value_ok(c.data, c.valid, padmask)
-        vals = c.data[ok]
-        if vals.numel() == 0:
+        # each shard's min and max, then min and max over the shards
+        los, his = [], []
+        for d, o in zip(C.shard_views(c.data, s), C.shard_views(ok, s)):
+            vals = d[o]
+            if vals.numel():
+                los.append(vals.min())
+                his.append(vals.max())
+        if not los:
             out[k] = None
             continue
-        lo, hi = torch.stack([vals.min(), vals.max()]).tolist()
+        lo = C.dist_min(torch.stack(los))
+        hi = C.dist_max(torch.stack(his))
+        lo, hi = torch.stack([lo, hi]).tolist()
         out[k] = (int(lo), int(hi))
     return out
 
@@ -292,7 +371,7 @@ def _packed_key_table(t: Table, pack, with_valid: bool = True) -> Table:
     cols = dict(t.columns)
     cols["__packed"] = Column(packed, valid if with_valid else None,
                               dt.INT64)
-    return Table(cols, t.nrows)
+    return Table(cols, t.nrows, t.distribution, t.counts)
 
 
 # ---------------------------------------------------------------------------
@@ -319,14 +398,24 @@ def groupby_agg(t: Table, keys: Sequence[str],
     by keys ascending (pandas sort=True).
 
     Routes, in the JAX package's order: dense slots when every key has a
-    small known range; packed keys when they fit 62 bits; the
-    scatter-claim hash groupby; the full sort."""
+    small known range (REP); packed keys when they fit 62 bits; the
+    scatter-claim hash groupby (REP); the two-phase sharded groupby (1D);
+    the full sort (REP)."""
     keys = list(keys)
     if any(op == "median" or op.startswith(("quantile_", "listagg"))
            for _, op, _ in aggs):
         raise NotImplementedError("median/quantile/listagg groupby is not "
                                   "ported yet")
-    dense_ok = (config.dense_groupby_max_slots > 0
+    local = _as_local(t)
+    if local is not None:
+        return groupby_agg(local, keys, aggs)
+    if t.distribution == ONED and any(op not in DECOMPOSE
+                                      for _, op, _ in aggs):
+        # the JAX package co-locates whole groups with one hash shuffle
+        raise NotImplementedError(
+            "the colocated groupby of 1D tables (_groupby_agg_colocated, "
+            "for aggregations that do not decompose) is not ported yet")
+    dense_ok = (t.distribution == REP and config.dense_groupby_max_slots > 0
                 and not any(op in ("nunique", "mode") or op.startswith("q:")
                             for _, op, _ in aggs))
     want_ranges = bool(keys) and (
@@ -361,6 +450,8 @@ def groupby_agg(t: Table, keys: Sequence[str],
         return _groupby_agg_packed(t, keys, list(aggs), pack)
     specs = tuple(op for _, op, _ in aggs)
     arrays = t.arrays(keys) + t.arrays([c for c, _, _ in aggs])
+    if t.distribution == ONED:
+        return _groupby_agg_sharded(t, keys, aggs, specs)
     if keys and config.hash_groupby and all(op in HASH_OPS for op in specs):
         out_keys, out_vals, ng, unresolved = groupby_local_hashed(
             arrays, t.nrows, specs, t.capacity, len(keys))
@@ -371,6 +462,24 @@ def groupby_agg(t: Table, keys: Sequence[str],
                                            t.capacity, len(keys))
     route_counts["groupby_sort"] += 1
     return _groupby_result(t, keys, aggs, out_keys, out_vals, ng)
+
+
+def _groupby_agg_sharded(t: Table, keys, aggs, specs) -> Table:
+    """The 1D branch: partial aggregation per shard, a hash shuffle of
+    the partials, combine and finalize per shard
+    (parallel/shuffle.groupby_sharded)."""
+    t = shrink_to_fit(t)
+    arrays = t.arrays(keys) + t.arrays([c for c, _, _ in aggs])
+    (out_keys, out_vals), counts, _ovf, method = groupby_sharded(
+        arrays, t.counts, len(keys), specs)
+    route_counts[f"groupby_sharded_{method}"] += 1
+    cols: Dict[str, Column] = {}
+    for kname, (kd, kv) in zip(keys, out_keys):
+        src = t.column(kname)
+        cols[kname] = Column(kd, kv, src.dtype, src.dictionary, src.vrange)
+    for (cname, op, oname), (vd, vv) in zip(aggs, out_vals):
+        cols[oname] = _agg_out_col(t.column(cname), op, vd, vv)
+    return shrink_to_fit(Table(cols, int(counts.sum()), ONED, counts))
 
 
 def _groupby_result(t, keys, aggs, out_keys, out_vals, ng) -> Table:
@@ -396,7 +505,7 @@ def _groupby_agg_packed(t: Table, keys, aggs, pack) -> Table:
         cols[name] = _key_out(t.column(name), code + lo)
     for _, _, oname in aggs:
         cols[oname] = out.columns[oname]
-    return Table(cols, out.nrows)
+    return Table(cols, out.nrows, out.distribution, out.counts)
 
 
 def _dense_slots(key_arrays, los, sizes, mask, strict_range: bool = False):
@@ -478,7 +587,12 @@ def _groupby_agg_dense(t: Table, keys, aggs, ranges) -> Table:
 
 def sort_table(t: Table, by: Sequence[str], ascending=None,
                na_last: bool = True) -> Table:
+    """Stable multi-key sort; a 1D table takes the sample sort (each shard
+    sorted, shard i's rows all before shard i+1's)."""
     by = list(by)
+    local = _as_local(t)
+    if local is not None:
+        return sort_table(local, by, ascending, na_last)
     if ascending is None:
         ascending = [True] * len(by)
     elif isinstance(ascending, bool):
@@ -491,6 +605,15 @@ def sort_table(t: Table, by: Sequence[str], ascending=None,
             res = sort_table(tp, ["__packed"], [True], na_last)
             return _keep_vranges(res.select(t.names), t)
     order = by + [n for n in t.names if n not in by]
+    if t.distribution == ONED:
+        t = shrink_to_fit(t)
+        out, counts = sort_sharded(t.arrays(order), t.counts, len(by),
+                                   tuple(ascending), na_last)
+        route_counts["sort_sharded"] += 1
+        res = shrink_to_fit(t.with_arrays(
+            {n: out[i] for i, n in enumerate(order)},
+            nrows=int(counts.sum()), counts=counts))
+        return _keep_vranges(res.select(t.names), t)
     out, _ = sort_local(t.arrays(order), t.nrows, len(by), tuple(ascending),
                         na_last)
     route_counts["sort_local"] += 1
@@ -519,8 +642,10 @@ def join_tables(left: Table, right: Table, left_on: Sequence[str],
     """Equi-join (pandas merge analogue); the build side is `right`.
     how: inner / left / right / outer. null_equal=True gives pandas merge
     semantics (null keys match each other); SQL passes False (null keys
-    never match). Routes, in the JAX package's order: the dense-LUT join,
-    the hash join, the sort join `_join_rep`."""
+    never match). Routes, in the JAX package's order: for two REP tables
+    the dense-LUT join, the hash join, the sort join `_join_rep`; for a 1D
+    probe side the broadcast join (a REP or small build side) or the
+    shuffle join, with the broadcast decision of plan/adaptive.py."""
     left_on, right_on = list(left_on), list(right_on)
     if how not in ("inner", "left", "right", "outer", "cross"):
         raise ValueError(f"join how={how!r} not supported")
@@ -569,14 +694,59 @@ def join_tables(left: Table, right: Table, left_on: Sequence[str],
             if rc.dtype is not common:
                 right.columns[rk] = Column(rc.data.to(common.torch),
                                            rc.valid, common)
-    out = _join_dense_try(left, right, left_on, right_on, how, suffixes,
-                          null_equal)
-    if out is not None:
-        return out
-    out = _join_hash_try(left, right, left_on, right_on, how, suffixes,
-                         null_equal)
-    if out is not None:
-        return out
+
+    ll, rl = _as_local(left), _as_local(right)
+    if ll is not None:
+        left = ll
+    if rl is not None:
+        right = rl
+    if left.distribution == REP and right.distribution == ONED:
+        left = left.shard()
+    if left.distribution == REP and right.distribution == REP:
+        out = _join_dense_try(left, right, left_on, right_on, how, suffixes,
+                              null_equal)
+        if out is not None:
+            return out
+        out = _join_hash_try(left, right, left_on, right_on, how, suffixes,
+                             null_equal)
+        if out is not None:
+            return out
+    from bodo_tpu_torch.plan import adaptive
+    if how == "outer" and left.distribution == ONED and \
+            right.distribution == REP:
+        # a replicated build side would emit its unmatched rows once per
+        # shard; shard it so every build row is owned by one shard
+        right = right.shard()
+    if left.distribution == ONED and right.distribution == REP and \
+            adaptive.should_demote_broadcast(right):
+        right = right.shard()
+    if how != "outer" and left.distribution == ONED and \
+            right.distribution == ONED and \
+            adaptive.join_broadcast_decision(right, left):
+        # a small build side is replicated instead of shuffling both
+        right = right.gather()
+    elif how == "inner" and left.distribution == ONED and \
+            right.distribution == ONED and \
+            adaptive.join_broadcast_decision(left, right):
+        # a small left side: swap (inner joins are symmetric), broadcast
+        # it, and restore the left-then-right column order
+        out = join_tables(right, left, right_on, left_on, "inner",
+                          (suffixes[1], suffixes[0]), null_equal)
+        lmap, rmap = _suffix_columns(left, right, left_on, right_on,
+                                     suffixes)
+        names = [lmap[n] for n in left.names] + \
+            [rmap[n] for n in right.names if n in rmap]
+        return out.select([n for n in names if n in out.columns])
+    if left.distribution == ONED and right.distribution == ONED:
+        out = adaptive.try_skew_split_join(left, right, left_on, right_on,
+                                           how, suffixes, null_equal)
+        if out is not None:
+            return out
+        return _join_sharded(left, right, left_on, right_on, how, suffixes,
+                             null_equal=null_equal)
+    if left.distribution == ONED and right.distribution == REP:
+        return _join_broadcast(left, right, left_on, right_on, how,
+                               suffixes, null_equal)
     return _join_rep(left, right, left_on, right_on, how, suffixes,
                      null_equal)
 
@@ -728,7 +898,7 @@ def _probe_build_arrays(left, right, left_on, right_on):
 
 
 def _assemble_join(left, right, left_on, right_on, lorder, rorder,
-                   out_p, out_b, nrows, how, suffixes) -> Table:
+                   out_p, out_b, nrows, how, suffixes, counts=None) -> Table:
     lmap, rmap = _suffix_columns(left, right, left_on, right_on, suffixes)
     cols: Dict[str, Column] = {}
     # full outer with a merged key column (same name both sides): pandas
@@ -767,7 +937,9 @@ def _assemble_join(left, right, left_on, right_on, lorder, rorder,
     # pandas column order: left columns, then right columns
     names: List[str] = [lmap[n] for n in left.names] + \
         [rmap[n] for n in right.names if n in rmap]
-    return Table(cols, nrows).select(names)
+    if counts is None:
+        return Table(cols, nrows).select(names)
+    return Table(cols, nrows, ONED, counts).select(names)
 
 
 def _join_rep(left, right, left_on, right_on, how, suffixes,
@@ -797,3 +969,112 @@ def _join_rep(left, right, left_on, right_on, how, suffixes,
     route_counts[f"join_rep_{method}"] += 1
     return _assemble_join(left, right, left_on, right_on, lorder, rorder,
                           out_p, out_b, cnt, how, suffixes)
+
+
+# ---------------------------------------------------------------------------
+# 1D joins and the key shuffle
+# ---------------------------------------------------------------------------
+
+def _join_shards(pa, ba, pcounts, bcounts, nk: int, how: str, out_cap: int,
+                 broadcast: bool, null_equal: bool, method: str,
+                 num_shards: int):
+    """join_local on every shard: probe shard i against build shard i, or
+    against the whole replicated build side (`broadcast`). Returns
+    (probe columns, build columns, rows per shard, overflow per shard,
+    unresolved per shard)."""
+    probes = _shard_arrays(pa, num_shards)
+    builds = [ba] * num_shards if broadcast else \
+        _shard_arrays(ba, num_shards)
+    outs_p, outs_b, cnts, ovfs, unres = [], [], [], [], []
+    for i in range(num_shards):
+        out_p, out_b, cnt, ovf, un = join_local(
+            probes[i], builds[i], int(pcounts[i]), int(bcounts[i]), nk, how,
+            out_cap, null_equal, method)
+        outs_p.append(out_p)
+        outs_b.append(out_b)
+        cnts.append(cnt)
+        ovfs.append(ovf)
+        unres.append(un)
+    return (_concat_pairs(outs_p), _concat_pairs(outs_b),
+            np.array(cnts, dtype=np.int64), np.array(ovfs, dtype=bool),
+            bool(torch.stack(unres).any()))
+
+
+def _join_sharded(left, right, left_on, right_on, how, suffixes,
+                  broadcast: bool = False, null_equal: bool = True,
+                  pre_shuffled: bool = False) -> Table:
+    """Join of co-located shards: equal keys are brought to one shard by
+    `shuffle_by_key` on both sides, or the build side is replicated
+    (`broadcast`). Each shard runs join_local (hash gids unless
+    config.hash_join is off). The output capacity starts at about one
+    match per probe row; on overflow the exact per-shard counts size one
+    last run."""
+    s = mesh_mod.num_shards()
+    if not broadcast and not pre_shuffled:
+        left = shuffle_by_key(left, left_on)
+        right = shuffle_by_key(right, right_on)
+    left = shrink_to_fit(left)
+    lorder, rorder, pa, ba = _probe_build_arrays(left, right, left_on,
+                                                 right_on)
+    nk = len(left_on)
+    out_cap = round_capacity(2 * left.shard_capacity)
+    bcounts = [right.nrows] * s if broadcast else right.counts
+    method = "hash" if config.hash_join else "sort"
+    for _ in range(4):
+        out_p, out_b, counts, ovf, unres = _join_shards(
+            pa, ba, left.counts, bcounts, nk, how, out_cap, broadcast,
+            null_equal, method, s)
+        if method == "hash" and unres:
+            method = "sort"  # pathological probe chains on some shard
+            continue
+        if not ovf.any():
+            break
+        # exact per-shard counts, then one final right-sized run
+        probes = _shard_arrays(pa[:nk], s)
+        builds = [ba[:nk]] * s if broadcast else _shard_arrays(ba[:nk], s)
+        exact = [join_count(probes[i], builds[i], int(left.counts[i]),
+                            int(bcounts[i]), nk, how, null_equal,
+                            method)[0] for i in range(s)]
+        out_cap = round_capacity(int(max(exact)))
+    else:
+        raise RuntimeError("join output overflow after exact-count retry")
+    route_counts["join_broadcast" if broadcast else "join_shuffle"] += 1
+    res = _assemble_join(left, right, left_on, right_on, lorder, rorder,
+                         out_p, out_b, int(counts.sum()), how, suffixes,
+                         counts)
+    return shrink_to_fit(res)
+
+
+def _join_broadcast(left, right, left_on, right_on, how, suffixes,
+                    null_equal: bool = True) -> Table:
+    """A 1D probe side against a replicated build side: every shard joins
+    its rows against the whole build side, nothing is shuffled."""
+    return _join_sharded(left, right, left_on, right_on, how, suffixes,
+                         broadcast=True, null_equal=null_equal)
+
+
+def shuffle_by_key(t: Table, key_cols: Sequence[str]) -> Table:
+    """Hash-partition the rows of a 1D table over its shards by key
+    columns: rows with equal keys land on the same shard. The send
+    buckets take a whole shard, so the shuffle never overflows."""
+    if t.distribution != ONED:
+        raise ValueError("shuffle_by_key needs a row-sharded (1D) table; "
+                         "shard the table first")
+    s = t.num_shards
+    names = t.names
+    nk = len(key_cols)
+    korder = list(key_cols) + [n for n in names if n not in key_cols]
+    karrays = t.arrays(korder)
+    dest = dest_shard(hash_columns(karrays[:nk]), s)
+    flat, slots = _flatten_with_valids(karrays)
+    out, counts, _ = shuffle_rows(dest, flat, t.counts, s, t.shard_capacity)
+    rebuilt = _rebuild_from_flat(out, slots)
+    res = t.with_arrays({n: rebuilt[i] for i, n in enumerate(korder)},
+                        nrows=int(counts.sum()), counts=counts)
+    return _keep_vranges(shrink_to_fit(res.select(names)), t)
+
+
+def concat_tables(tables: Sequence[Table]) -> Table:
+    """Row-wise concatenation (UNION ALL): not ported yet."""
+    raise NotImplementedError("concat_tables (the row-wise union of "
+                              "tables) is not ported yet")

@@ -1,9 +1,12 @@
 """Device-resident columnar tables on torch tensors.
 
-Counterpart of bodo_tpu/table/table.py for one device (the REP
-distribution): each column is a fixed-capacity padded tensor plus an
-optional validity mask; the number of real rows is tracked on the host
-(`nrows`). Strings are dictionary-encoded: the sorted dictionary lives on
+Counterpart of bodo_tpu/table/table.py: each column is a fixed-capacity
+padded tensor plus an optional validity mask; the number of real rows is
+tracked on the host (`nrows`). A table is replicated ("REP", one copy)
+or row-sharded ("1D") over the S shards of a mesh (parallel/mesh.py):
+then a column holds S blocks of `shard_capacity` rows, shard i owning
+the first counts[i] rows of block i, the JAX package's global layout.
+Strings are dictionary-encoded: the sorted dictionary lives on
 the host, int32 codes on the device. Capacities follow the JAX package's
 `round_capacity` rule so both packages see the same shapes.
 
@@ -22,6 +25,8 @@ from bodo_tpu_torch.config import resolve_device
 from bodo_tpu_torch.table import dtypes as dt
 from bodo_tpu_torch.table.dtypes import DType
 
+REP = "REP"   # replicated: one logical copy
+ONED = "1D"   # row-sharded over the mesh's shards
 
 # the JAX package's default capacity rounding (its config.capacity_round)
 CAPACITY_ROUND = 128
@@ -200,9 +205,11 @@ def _masked_to_pandas(data, valid, dtype: DType):
 
 @dataclass
 class Table:
-    """Host-level handle to device-resident columns (one device)."""
+    """Host-level handle to device-resident columns."""
     columns: Dict[str, Column]
     nrows: int
+    distribution: str = REP
+    counts: Optional[np.ndarray] = None  # per-shard real rows when 1D
 
     @property
     def names(self) -> List[str]:
@@ -215,6 +222,14 @@ class Table:
         return next(iter(self.columns.values())).capacity
 
     @property
+    def num_shards(self) -> int:
+        return 1 if self.counts is None else len(self.counts)
+
+    @property
+    def shard_capacity(self) -> int:
+        return self.capacity // self.num_shards
+
+    @property
     def device(self) -> torch.device:
         return next(iter(self.columns.values())).data.device
 
@@ -222,24 +237,101 @@ class Table:
         return self.columns[name]
 
     def select(self, names: Sequence[str]) -> "Table":
-        return Table({n: self.columns[n] for n in names}, self.nrows)
+        return Table({n: self.columns[n] for n in names}, self.nrows,
+                     self.distribution, self.counts)
 
     def with_columns(self, columns: Dict[str, Column]) -> "Table":
-        return Table(dict(columns), self.nrows)
+        return Table(dict(columns), self.nrows, self.distribution,
+                     self.counts)
 
     def arrays(self, names: Sequence[str]):
         """(data, valid) pairs of the named columns, in order."""
         return tuple((self.columns[n].data, self.columns[n].valid)
                      for n in names)
 
-    def with_arrays(self, tree, nrows: Optional[int] = None) -> "Table":
+    def with_arrays(self, tree, nrows: Optional[int] = None,
+                    counts: Optional[np.ndarray] = None) -> "Table":
         """Rebuild from {name: (data, valid)}, keeping each column's dtype
-        and dictionary (value bounds are dropped, as in the JAX package)."""
+        and dictionary (value bounds are dropped, as in the JAX package).
+        Per-shard `counts` make the result 1D."""
         cols = {}
         for name, (data, valid) in tree.items():
             src = self.columns[name]
             cols[name] = Column(data, valid, src.dtype, src.dictionary)
-        return Table(cols, self.nrows if nrows is None else nrows)
+        if counts is None:
+            return Table(cols, self.nrows if nrows is None else nrows,
+                         self.distribution, self.counts)
+        return Table(cols, self.nrows if nrows is None else nrows, ONED,
+                     np.asarray(counts, dtype=np.int64))
+
+    # ---- distribution ----------------------------------------------------
+    def shard(self, mesh=None) -> "Table":
+        """REP -> 1D: scatter rows over the shards of `mesh` (the active
+        one by default; the default mesh is on CUDA, so without CUDA this
+        raises unless a mesh on another device is given or active).
+
+        Shard i owns global rows [i*per, i*per + counts[i]): the packed
+        per-shard layout is the source layout, padded on the device to
+        S * per rows with the tail past `nrows` zeroed."""
+        if self.distribution == ONED:
+            return self
+        from bodo_tpu_torch.parallel import mesh as mesh_mod
+        m = mesh or mesh_mod.get_mesh()
+        if self.columns and self.device != m.device:
+            raise ValueError(f"table on {self.device} cannot be sharded "
+                             f"over a mesh on {m.device}")
+        s = m.n_shards
+        per = round_capacity(-(-max(self.nrows, 1) // s))
+        counts = np.array(
+            [max(0, min(per, self.nrows - i * per)) for i in range(s)],
+            dtype=np.int64)
+        target = s * per
+        nrows = self.nrows
+
+        def scatter(arr):
+            if arr.shape[0] < target:
+                d = torch.cat([arr, arr.new_zeros(target - arr.shape[0])])
+            else:
+                d = arr[:target].clone()
+            d[nrows:] = 0  # the tail past the real rows
+            return d
+
+        cols = {name: Column(scatter(c.data),
+                             None if c.valid is None else scatter(c.valid),
+                             c.dtype, c.dictionary, c.vrange)
+                for name, c in self.columns.items()}
+        return Table(cols, self.nrows, ONED, counts)
+
+    def gather(self) -> "Table":
+        """1D -> REP: the shards' real rows in shard order, repacked at
+        the front of a capacity of round_capacity(nrows)."""
+        if self.distribution == REP:
+            return self
+        per = self.shard_capacity
+        cap = round_capacity(max(self.nrows, 1))
+        dev = self.device if self.columns else None
+        idx = torch.cat([torch.arange(i * per, i * per + int(c), device=dev)
+                         for i, c in enumerate(self.counts)]
+                        + [torch.zeros(0, dtype=torch.int64, device=dev)])
+
+        def pack(arr):
+            out = arr.new_zeros(cap)
+            out[:self.nrows] = arr[idx]
+            return out
+
+        cols = {name: Column(pack(c.data),
+                             None if c.valid is None else pack(c.valid),
+                             c.dtype, c.dictionary, c.vrange)
+                for name, c in self.columns.items()}
+        return Table(cols, self.nrows, REP, None)
+
+    def counts_device(self) -> torch.Tensor:
+        """Per-shard row counts as an int64 tensor [S] on the table's
+        device ([nrows] for a replicated table)."""
+        counts = (np.array([self.nrows], dtype=np.int64)
+                  if self.counts is None else self.counts)
+        return torch.from_numpy(np.asarray(counts, dtype=np.int64)).to(
+            self.device)
 
     # ---- conversion ------------------------------------------------------
     @staticmethod
@@ -255,7 +347,8 @@ class Table:
         return Table(cols, n)
 
     def to_numpy(self) -> Dict[str, np.ndarray]:
-        return {n: c.to_numpy(self.nrows) for n, c in self.columns.items()}
+        t = self.gather() if self.distribution == ONED else self
+        return {n: c.to_numpy(t.nrows) for n, c in t.columns.items()}
 
     @staticmethod
     def from_pandas(df, device=None) -> "Table":
@@ -289,14 +382,16 @@ class Table:
     def __repr__(self) -> str:  # pragma: no cover
         schema = ", ".join(f"{n}:{c.dtype.name}"
                            for n, c in self.columns.items())
-        return f"Table[{self.nrows} rows, cap={self.capacity}]({schema})"
+        return (f"Table[{self.nrows} rows, cap={self.capacity}, "
+                f"{self.distribution}]({schema})")
 
 
 def from_reference_arrays(columns: Dict[str, tuple], nrows: int,
-                          device=None) -> Table:
+                          device=None, counts=None) -> Table:
     """Port Table from the JAX package's Column fields exported as numpy:
     `columns` maps name -> (data, valid, dtype name, dictionary, vrange),
-    with `data`/`valid` the padded physical arrays. The physical layout is
+    with `data`/`valid` the padded physical arrays (of a 1D table: its
+    global arrays, with its per-shard `counts`). The physical layout is
     the same in both packages, so this is a copy onto the device."""
     dev = resolve_device(device)
     cols: Dict[str, Column] = {}
@@ -310,4 +405,6 @@ def from_reference_arrays(columns: Dict[str, tuple], nrows: int,
         dic = None if dictionary is None else np.asarray(dictionary)
         cols[name] = Column(d, v, dtype, dic,
                             None if vrange is None else tuple(vrange))
-    return Table(cols, nrows)
+    if counts is None:
+        return Table(cols, nrows)
+    return Table(cols, nrows, ONED, np.asarray(counts, dtype=np.int64))

@@ -96,9 +96,15 @@ def stage_means(run: Callable[[], object], reps: int, stages, substages
     return {n: spent[n] / reps for n in names}
 
 
+# symbols of the port's own CUDA kernels (bodo_tpu_torch/csrc)
+PORT_KERNELS = ("lut_gather_kernel", "hash_probe_kernel", "tile_histogram",
+                "scan_tiles", "tile_rank", "range_partition_kernel")
+
+
 def trace(run: Callable[[], object]) -> dict:
     """One run under torch.profiler: its wall, the device time by operator
-    and by kernel, and the device's busy share of the wall."""
+    and by kernel (the port's own kernels listed apart), and the device's
+    busy share of the wall."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -128,6 +134,9 @@ def trace(run: Callable[[], object]) -> dict:
                               for k, ms, c in ops[:25]],
         "top_kernels_ms": [{"kernel": k[:200], "ms": ms, "calls": c}
                            for k, ms, c in kernels[:25]],
+        "port_kernels_ms": [{"kernel": k[:200], "ms": ms, "calls": c}
+                            for k, ms, c in kernels
+                            if any(p in k for p in PORT_KERNELS)],
     }
 
 
@@ -147,4 +156,7 @@ def report(result: dict) -> None:
         print(f"  {r['ms']:10.3f} ms  x{r['calls']:<5} {r['op']}")
     print("device time by kernel:")
     for r in result["top_kernels_ms"][:10]:
+        print(f"  {r['ms']:10.3f} ms  x{r['calls']:<5} {r['kernel'][:100]}")
+    print("device time of the port's CUDA kernels:")
+    for r in result["port_kernels_ms"]:
         print(f"  {r['ms']:10.3f} ms  x{r['calls']:<5} {r['kernel'][:100]}")

@@ -23,6 +23,7 @@ from typing import Dict, Tuple
 import numpy as np
 
 from bodo_tpu_torch import relational as R
+from bodo_tpu_torch.parallel.mesh import make_mesh, use_mesh
 from bodo_tpu_torch.plan.expr import ColRef, Lit
 from bodo_tpu_torch.table.table import Table
 
@@ -57,12 +58,26 @@ def tables_from_arrays(fact: Dict[str, np.ndarray],
             Table.from_numpy(dim, device=device))
 
 
-def pipeline(fact, dim, device=None) -> Table:
+def pipeline(fact, dim, device=None, shard: bool = False,
+             n_shards: int = 4) -> Table:
     """The star query through the relational layer; `fact` and `dim` are
     Tables or dicts of numpy columns (put on `device`, CUDA by default).
-    Returns the (g, s, c) table sorted by g."""
+    Returns the (g, s, c) table sorted by g.
+
+    shard=True row-shards both tables over a mesh of `n_shards` shards on
+    their device: the filtered fact table is not more than 4x the
+    dimension, so the join is the shuffle join (both sides hashed to
+    their key's shard), then the two-phase groupby and the sample sort;
+    the result is a 1D table."""
     if isinstance(fact, dict):
         fact, dim = tables_from_arrays(fact, dim, device)
+    if not shard:
+        return _pipeline(fact, dim)
+    with use_mesh(make_mesh(n_shards, fact.device)):
+        return _pipeline(fact.shard(), dim.shard())
+
+
+def _pipeline(fact: Table, dim: Table) -> Table:
     f = R.filter_table(fact, ColRef("y") % Lit(3) != Lit(0))
     j = R.join_tables(f, dim, ["k"], ["k"], "inner")
     j = R.assign_columns(j, {"u": ColRef("v") * ColRef("w")})

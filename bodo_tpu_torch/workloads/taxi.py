@@ -89,18 +89,33 @@ def tables_from_arrays(trips: Dict[str, np.ndarray],
     return tuple(out)
 
 
-def pipeline(trips, weather, device=None):
+def pipeline(trips, weather, device=None, shard: bool = False,
+             n_shards: int = 4):
     """The workload on the port. `trips`/`weather` are file paths (parquet
     / csv, read onto `device`, CUDA by default) or port Tables. Returns
-    a Table sorted by the six keys."""
-    from bodo_tpu_torch import relational as R
+    a Table sorted by the six keys.
+
+    shard=True is the JAX package's default (`bodo_tpu_pipeline(...,
+    shard=True)`): the trips are row-sharded over a mesh of `n_shards`
+    shards on their device, the weather stays replicated, so the join is
+    a broadcast join, the groupby the two-phase sharded groupby and the
+    sort the sample sort; the result is a 1D table."""
     from bodo_tpu_torch.io import read_csv, read_parquet
-    from bodo_tpu_torch.plan.expr import ColRef as c, DtField, IsIn, Lit, Where
+    from bodo_tpu_torch.parallel.mesh import make_mesh, use_mesh
 
     if isinstance(weather, (str, os.PathLike)):
         weather = read_csv(weather, parse_dates=["DATE"], device=device)
     if isinstance(trips, (str, os.PathLike)):
         trips = read_parquet(trips, device=device)
+    if not shard:
+        return _pipeline(trips, weather)
+    with use_mesh(make_mesh(n_shards, trips.device)):
+        return _pipeline(trips.shard(), weather)
+
+
+def _pipeline(trips, weather):
+    from bodo_tpu_torch import relational as R
+    from bodo_tpu_torch.plan.expr import ColRef as c, DtField, IsIn, Lit, Where
 
     weather = R.assign_columns(weather, {
         "date": DtField("date", c("DATE")),

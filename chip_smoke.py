@@ -10,8 +10,12 @@ per source, all started together), then:
      bit-identical: lut_gather for LUTs of 1 to 2^22 slots (every size
      the dense join admits), hash_probe for tables of 16 to 2^24 slots,
      2 or 4 code columns, hit, miss and not-ok rows and an unresolved
-     walk; and times lut_gather, its plain version and the PyTorch call
-     that computes the same function;
+     walk; partition_rank for N in {1, 1000, 5,000,000} rows and K in
+     {1, 4, 4096} buckets; range_partition at N = 5,000,000 for 1, 3
+     and 4095 splitters, with keys whose top bit is set, the padding
+     key, splitters equal to keys or duplicated, and an all-padding
+     shard's splitters; and times lut_gather, its plain version and the
+     PyTorch call that computes the same function;
   2. drives the main paths, each with the route and launch counts set to
      0 just before it and read just after:
      - the NYC-taxi relational pipeline at 20,000,000 trip rows (about
@@ -29,6 +33,17 @@ per source, all started together), then:
        against the fact table at 2,000,000 fact rows, whose duplicate
        keys send them through the sort join by hash gids, each against a
        numpy oracle by row multiset;
+     - the taxi pipeline with shard=True (the JAX package's default) at
+       20,000,000 rows on 4 shards of the card: the broadcast join
+       (hash_probe on each shard), the two-phase sharded groupby
+       (partition_rank in its shuffle), the sample sort (range_partition,
+       then partition_rank), against the numpy oracle and row for row
+       against the REP run's result; partition_rank and range_partition
+       are then held against their plain versions and timed on the
+       inputs a run gave them;
+     - the star join with shard=True on 4 shards, on the REP phase's
+       tables: the shuffle join (partition_rank on the 20M-row fact
+       table's shards), against the numpy oracle;
   3. runs the taxi pipeline at 20,000 rows, which takes the packed/hashed
      groupby route, against the oracle.
 
@@ -50,28 +65,36 @@ SMALL_ROWS = 20_000
 STAR_ROWS = 20_000_000     # fact rows; the dimension has a quarter
 MATRIX_ROWS = 2_000_000
 PROBE_ROWS = 13_333_333    # fact rows the star query's filter keeps
+SHARDS = 4                 # shards of the 1D phases' mesh on the card
+SHARD_ROWS = 5_000_000     # rows of one shard of the 20M-row tables
 SEED = 0
 AVG_RTOL = 1e-9
 # H100 SXM device-memory bandwidth (NVIDIA data sheet), for bound_ms
 HBM_BYTES_PER_S = 3.35e12
+# the spin that holds the card while a timing loop is queued (~50 ms)
+SPIN_CYCLES = 100_000_000
 
 
-def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median device time of one call of `fn`, by CUDA events."""
+def device_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Median device time of one call of `fn` over `reps` calls, by CUDA
+    events around each call. A spin kernel holds the card while the host
+    queues the calls, so the calls run back to back and the events time
+    the device, not the Python wrapper between launches (most of a call
+    that runs for microseconds). A call that syncs with the host inside
+    (the plain hash_probe's loop) is timed with its syncs."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
+    starts = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
+    torch.cuda._sleep(SPIN_CYCLES)
+    for start, end in zip(starts, ends):
         start.record()
         fn()
         end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
 
 
 def check_lut_gather(dev):
@@ -109,10 +132,10 @@ def check_lut_gather(dev):
                             dtype=torch.int32)
         codes = torch.randint(0, k, (n,), generator=g, device=dev,
                               dtype=torch.int32)
-        kernel_ms = time_ms(lambda: CK.lut_gather(codes, lut))
-        plain_ms = time_ms(lambda: CK.lut_gather_plain(codes, lut))
-        library_ms = time_ms(lambda: lut[codes])
-        kernel_ms_again = time_ms(lambda: CK.lut_gather(codes, lut))
+        kernel_ms = device_ms(lambda: CK.lut_gather(codes, lut))
+        plain_ms = device_ms(lambda: CK.lut_gather_plain(codes, lut))
+        library_ms = device_ms(lambda: lut[codes])
+        kernel_ms_again = device_ms(lambda: CK.lut_gather(codes, lut))
         nbytes = 4 * n + 4 * n + 4 * k  # codes read, output written, LUT
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
         print(f"lut_gather timing K={k} N={n}: kernel_ms={kernel_ms:.6f} "
@@ -267,9 +290,9 @@ def time_hash_probe(args):
         raise AssertionError("hash_probe differs from its plain version on "
                              "the star path's inputs")
     del idx, want_idx
-    kernel_ms = time_ms(lambda: CK.hash_probe(*args))
-    plain_ms = time_ms(lambda: CK.hash_probe_plain(*args), reps=5)
-    kernel_ms_again = time_ms(lambda: CK.hash_probe(*args))
+    kernel_ms = device_ms(lambda: CK.hash_probe(*args))
+    plain_ms = device_ms(lambda: CK.hash_probe_plain(*args), reps=5)
+    kernel_ms_again = device_ms(lambda: CK.hash_probe(*args))
     streamed, rounds, compares, owner_sectors, code_sectors = \
         probe_walk(*args)
     n_ok = int(ok.sum())
@@ -297,11 +320,167 @@ def time_hash_probe(args):
             "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}
 
 
+def check_partition_rank(dev):
+    """Phase 1 for partition_rank: bit-identity with its plain version
+    for every (N, K) case, some rows not ok."""
+    import torch
+    from bodo_tpu_torch.ops import cuda_kernels as CK
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    for n in (1, 1000, SHARD_ROWS):
+        for k in (1, SHARDS, CK.PARTITION_MAX_BUCKETS):
+            dest = torch.randint(0, k, (n,), generator=g, device=dev,
+                                 dtype=torch.int32)
+            ok = torch.rand(n, generator=g, device=dev) < 0.9
+            rank, counts = CK.partition_rank(dest, ok, k)
+            want_rank, want_counts = CK.partition_rank_plain(dest, ok, k)
+            torch.cuda.synchronize()
+            same = (bool(torch.equal(rank, want_rank))
+                    and bool(torch.equal(counts, want_counts)))
+            print(f"partition_rank N={n} K={k}: bit_identical={same} "
+                  f"ok_rows={int(ok.sum())}")
+            if not same:
+                raise AssertionError(f"partition_rank differs from its "
+                                     f"plain version at N={n} K={k}")
+
+
+def check_range_partition(dev):
+    """Phase 1 for range_partition: bit-identity with its plain version on
+    uint64 keys (held in int64) with the traps of unsigned order."""
+    import torch
+    from bodo_tpu_torch.ops import cuda_kernels as CK
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    top = -(1 << 63)  # 0x8000000000000000
+    pk = torch.randint(0, 1 << 62, (SHARD_ROWS,), generator=g, device=dev,
+                       dtype=torch.int64)
+    pk[::7] |= top          # top bit set
+    pk[::11] = -1           # the padding key 0xFFFFFFFFFFFFFFFF
+    cases = []
+    for n_spl in (1, SHARDS - 1, CK.RANGE_MAX_SPLITTERS - 1):
+        pick = torch.randint(0, SHARD_ROWS, (n_spl,), generator=g,
+                             device=dev)
+        cases.append((f"{n_spl} splitters equal to keys", pk[pick]))
+    cases.append(("duplicated splitters",
+                  torch.cat([pk[:2], pk[:2], pk[7:8]])))
+    cases.append(("all-padding shard", torch.full((SHARDS - 1,), -1,
+                                                  device=dev)))
+    for label, spl in cases:
+        spl = CK._SIGN64 ^ torch.sort(spl ^ CK._SIGN64).values  # unsigned
+        got = CK.range_partition(pk, spl.contiguous())
+        want = CK.range_partition_plain(pk, spl)
+        torch.cuda.synchronize()
+        same = bool(torch.equal(got, want))
+        print(f"range_partition N={SHARD_ROWS} {label}: "
+              f"bit_identical={same}")
+        if not same:
+            raise AssertionError(f"range_partition differs from its plain "
+                                 f"version ({label})")
+
+
+class _Capture:
+    """Record the arguments of every call of CK.<name> while active."""
+
+    def __init__(self, name: str):
+        from bodo_tpu_torch.ops import cuda_kernels as CK
+        self.ck, self.name, self.calls = CK, name, []
+        self.orig = getattr(CK, name)
+
+    def __enter__(self):
+        def keep(*args):
+            self.calls.append(args)
+            return self.orig(*args)
+        setattr(self.ck, self.name, keep)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.ck, self.name, self.orig)
+
+
+def time_partition_rank(args):
+    """Hold partition_rank against its plain version on the inputs the
+    1D taxi path gave it, and time both there."""
+    import torch
+    from bodo_tpu_torch.ops import cuda_kernels as CK
+    dest, ok, k = args
+    rank, counts = CK.partition_rank(*args)
+    want_rank, want_counts = CK.partition_rank_plain(*args)
+    torch.cuda.synchronize()
+    err = max(int((rank.long() - want_rank.long()).abs().max()),
+              int((counts.long() - want_counts.long()).abs().max()))
+    same = (bool(torch.equal(rank, want_rank))
+            and bool(torch.equal(counts, want_counts)))
+    n = dest.shape[0]
+    print(f"partition_rank (1D taxi path's call) N={n} K={k} "
+          f"ok_rows={int(ok.sum())}: bit_identical={same} "
+          f"max_abs_diff={err}")
+    if not same:
+        raise AssertionError("partition_rank differs from its plain version "
+                             "on the 1D taxi path's inputs")
+    kernel_ms = device_ms(lambda: CK.partition_rank(*args))
+    plain_ms = device_ms(lambda: CK.partition_rank_plain(*args))
+    kernel_ms_again = device_ms(lambda: CK.partition_rank(*args))
+    nbytes = 9 * n + 4 * k  # dest and ok read, rank written; counts
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"partition_rank timing N={n} K={k}: kernel_ms={kernel_ms:.6f} "
+          f"(again {kernel_ms_again:.6f}) plain_ms={plain_ms:.6f} "
+          f"bound_ms={bound_ms:.6f} ({nbytes} bytes at "
+          f"{HBM_BYTES_PER_S / 1e12} TB/s); library_ms=null (no single "
+          f"PyTorch call gives a stable in-bucket rank)")
+    return {"name": "partition_rank", "route": "cuda",
+            "source": "bodo_tpu_torch/csrc/partition_rank.cu",
+            "replaces": "bodo_tpu/ops/pallas_kernels.py:432",
+            "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}
+
+
+def time_range_partition(args):
+    """Hold range_partition against its plain version on the inputs the
+    1D taxi path gave it, time both there, and torch.searchsorted on the
+    same keys (sign-flipped once beforehand, so that its signed order is
+    the unsigned order)."""
+    import torch
+    from bodo_tpu_torch.ops import cuda_kernels as CK
+    pk, spl = args
+    got = CK.range_partition(pk, spl)
+    want = CK.range_partition_plain(pk, spl)
+    torch.cuda.synchronize()
+    err = int((got.long() - want.long()).abs().max())
+    same = bool(torch.equal(got, want))
+    n, n_spl = pk.shape[0], spl.shape[0]
+    print(f"range_partition (1D taxi path's call) N={n} n_spl={n_spl}: "
+          f"bit_identical={same} max_abs_diff={err}")
+    if not same:
+        raise AssertionError("range_partition differs from its plain "
+                             "version on the 1D taxi path's inputs")
+    kernel_ms = device_ms(lambda: CK.range_partition(pk, spl))
+    plain_ms = device_ms(lambda: CK.range_partition_plain(pk, spl))
+    flipped_pk = (pk ^ CK._SIGN64).contiguous()
+    flipped_spl = (spl ^ CK._SIGN64).contiguous()
+    library_ms = device_ms(lambda: torch.searchsorted(
+        flipped_spl, flipped_pk, right=True))
+    kernel_ms_again = device_ms(lambda: CK.range_partition(pk, spl))
+    nbytes = 12 * n + 8 * n_spl  # keys read, destinations written
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"range_partition timing N={n} n_spl={n_spl}: "
+          f"kernel_ms={kernel_ms:.6f} (again {kernel_ms_again:.6f}) "
+          f"plain_ms={plain_ms:.6f} library_ms(torch.searchsorted)="
+          f"{library_ms:.6f} bound_ms={bound_ms:.6f} ({nbytes} bytes at "
+          f"{HBM_BYTES_PER_S / 1e12} TB/s)")
+    return {"name": "range_partition", "route": "cuda",
+            "source": "bodo_tpu_torch/csrc/range_partition.cu",
+            "replaces": "bodo_tpu/ops/pallas_kernels.py:654",
+            "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes",
+            "library_ms": library_ms}
+
+
 def run_star():
     """Drive the star join at STAR_ROWS fact rows with the counts reset
     just before and read just after; check it against the numpy oracle.
     Returns (kernel launch counts of that run, the arguments of the
-    hash_probe launch of a later run, for timing)."""
+    hash_probe launch of a later run, for timing; the tables, arrays and
+    oracle, for the 1D phase)."""
     import numpy as np
     import torch
     from bodo_tpu_torch import relational as R
@@ -350,19 +529,46 @@ def run_star():
                              f"hash_probe not launched: {launches}")
 
     # one more run, keeping the inputs of its hash_probe launch
-    captured = []
-    launch = CK.hash_probe
-
-    def keep(*args):
-        captured.append(args)
-        return launch(*args)
-
-    CK.hash_probe = keep
-    try:
+    with _Capture("hash_probe") as probe:
         S.pipeline(fact, dim)
-    finally:
-        CK.hash_probe = launch
-    return launches, captured[0]
+    return launches, probe.calls[0], (fact, dim, oracle)
+
+
+def run_star_1d(fact, dim, oracle):
+    """Drive the star join with shard=True on SHARDS shards of the card,
+    on the REP phase's tables: the shuffle join (both sides hashed to
+    their key's shard, partition_rank on every shard), the sharded
+    groupby and sort; check it against the numpy oracle."""
+    import torch
+    from bodo_tpu_torch import relational as R
+    from bodo_tpu_torch.ops import cuda_kernels as CK
+    from bodo_tpu_torch.workloads import star_join as S
+
+    torch.cuda.reset_peak_memory_stats()
+    R.reset_route_counts()
+    CK.reset_launches()
+    t0 = time.perf_counter()
+    out = S.pipeline(fact, dim, shard=True, n_shards=SHARDS)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    routes = {k: v for k, v in R.route_counts.items() if v}
+    launches = dict(CK.launches)
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    S.pipeline(fact, dim, shard=True, n_shards=SHARDS)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    S.check_against(out.to_numpy(), oracle, rtol=AVG_RTOL)
+    print(f"star path 1D: shards={SHARDS} groups={out.nrows} "
+          f"shard_groups={out.counts.tolist()} pipeline_s={wall_s:.4f} "
+          f"pipeline_warm_s={warm_s:.4f} max_memory_allocated={peak}")
+    print(f"star path 1D: route_counts={routes} kernel_launches={launches}")
+    print(f"star path 1D: matches the numpy oracle (g and c exact, s "
+          f"rtol={AVG_RTOL})")
+    if routes.get("join_shuffle", 0) < 1 or launches["partition_rank"] < 1 \
+            or launches["hash_probe"] < 1:
+        raise AssertionError(f"star path 1D: shuffle join or its kernels "
+                             f"not taken: {routes} {launches}")
 
 
 def _rows_matrix(cols):
@@ -452,7 +658,8 @@ def run_join_matrix():
 def run_taxi(n_rows: int, want_routes, label: str):
     """Drive the main path at `n_rows` with the counts reset just before
     and read just after; check it against the numpy oracle. Returns the
-    kernel launch counts of that run."""
+    kernel launch counts of that run, and (the tables, the result, the
+    oracle) for the 1D phase."""
     import torch
     from bodo_tpu_torch import relational as R
     from bodo_tpu_torch.ops import cuda_kernels as CK
@@ -494,7 +701,60 @@ def run_taxi(n_rows: int, want_routes, label: str):
     missing = [r for r in want_routes if routes.get(r, 0) < 1]
     if missing:
         raise AssertionError(f"{label}: routes {missing} not taken")
-    return launches
+    return launches, (trips, weather, got, oracle)
+
+
+def run_taxi_1d(trips, weather, rep_got, oracle):
+    """Drive the taxi path with shard=True at the REP phase's size on
+    SHARDS shards, with the counts reset just before and read just
+    after; check it against the numpy oracle and, row for row, against
+    the REP run's result. Returns (kernel launch counts of that run, the
+    arguments of the first partition_rank and range_partition launches
+    of a later run, for timing)."""
+    import torch
+    from bodo_tpu_torch import relational as R
+    from bodo_tpu_torch.ops import cuda_kernels as CK
+    from bodo_tpu_torch.workloads import taxi as T
+
+    def run():
+        return T.pipeline(trips, weather, shard=True, n_shards=SHARDS)
+
+    torch.cuda.reset_peak_memory_stats()
+    R.reset_route_counts()
+    CK.reset_launches()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    routes = {k: v for k, v in R.route_counts.items() if v}
+    launches = dict(CK.launches)
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+
+    got = out.to_numpy()
+    T.check_against(got, oracle, rtol=AVG_RTOL)
+    T.check_against(got, rep_got, rtol=AVG_RTOL)
+    print(f"main path 1D: rows={trips.nrows} shards={SHARDS} "
+          f"groups={out.nrows} shard_groups={out.counts.tolist()} "
+          f"pipeline_s={wall_s:.4f} pipeline_warm_s={warm_s:.4f} "
+          f"max_memory_allocated={peak}")
+    print(f"main path 1D: route_counts={routes} kernel_launches={launches}")
+    print(f"main path 1D: matches the numpy oracle and, row for row, the "
+          f"REP run (keys and trip_count exact, avg_miles rtol={AVG_RTOL})")
+    want = {"join_broadcast": 1, "groupby_packed": 1,
+            "groupby_sharded_hash": 1, "sort_sharded": 1}
+    if routes != want:
+        raise AssertionError(f"main path 1D: routes {routes}, want {want}")
+    for k in ("hash_probe", "partition_rank", "range_partition"):
+        if launches[k] < 1:
+            raise AssertionError(f"main path 1D: {k} not launched")
+    with _Capture("partition_rank") as pr, \
+            _Capture("range_partition") as rp:
+        run()
+    return launches, pr.calls[0], rp.calls[0]
 
 
 def main() -> int:
@@ -525,15 +785,29 @@ def main() -> int:
 
     lut = check_lut_gather(dev)
     check_hash_probe(dev)
-    # each main path launches its kernel: lut_gather on the taxi path,
-    # hash_probe on the star path
-    lut["launches"] = run_taxi(MAIN_ROWS, ("join_dense", "groupby_dense"),
-                               "main path")["lut_gather"]
-    star_launches, probe_args = run_star()
+    check_partition_rank(dev)
+    check_range_partition(dev)
+    # each main path launches its kernels: lut_gather on the taxi path,
+    # hash_probe on the star path, partition_rank and range_partition on
+    # the 1D taxi path
+    taxi_launches, taxi_run = run_taxi(MAIN_ROWS, ("join_dense",
+                                                   "groupby_dense"),
+                                       "main path")
+    lut["launches"] = taxi_launches["lut_gather"]
+    star_launches, probe_args, star_run = run_star()
     probe = time_hash_probe(probe_args)
     probe["launches"] = star_launches["hash_probe"]
     del probe_args
-    kernels = [lut, probe]
+    oned_launches, rank_args, range_args = run_taxi_1d(*taxi_run)
+    del taxi_run
+    rank = time_partition_rank(rank_args)
+    rank["launches"] = oned_launches["partition_rank"]
+    part = time_range_partition(range_args)
+    part["launches"] = oned_launches["range_partition"]
+    del rank_args, range_args
+    run_star_1d(*star_run)
+    del star_run
+    kernels = [lut, probe, rank, part]
     for k in kernels:
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']} was not launched on its "

@@ -1,0 +1,50 @@
+"""The `partition_rank` and `range_partition` CUDA kernels against their
+plain versions on the card, bit for bit: partition_rank for N in {1,
+1000, 5,000,000} rows and K in {1, 4, 4096} buckets with rows not ok,
+range_partition at N = 5,000,000 for 1, 3 and 4095 splitters with keys
+whose top bit is set, the padding key, splitters equal to keys and
+duplicated, and an all-padding shard's splitters. Marked `cuda`: skips
+without a GPU. It imports nothing of the test harness, so on the card's
+machine it runs with
+
+    python -m pytest --noconftest -m cuda tests/test_torch_gpu_partition.py
+"""
+
+import numpy as np
+import pytest
+
+PAD = np.uint64(0xFFFFFFFFFFFFFFFF)
+
+
+@pytest.mark.cuda
+def test_partition_kernels_match_plain_on_gpu():
+    import torch
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with nvcc (CUDA kernel)")
+    from bodo_tpu_torch.ops import cuda_kernels as CK
+    r = np.random.default_rng(0)
+    dev = torch.device("cuda")
+    for n in (1, 1000, 5_000_000):
+        for k in (1, 4, 4096):
+            dest = torch.from_numpy(r.integers(0, k, n).astype(np.int32))
+            ok = torch.from_numpy(r.random(n) < 0.9)
+            want = CK.partition_rank_plain(dest, ok, k)
+            before = CK.launches["partition_rank"]
+            got = CK.partition_rank(dest.to(dev), ok.to(dev), k)
+            torch.cuda.synchronize()
+            assert CK.launches["partition_rank"] == before + 1
+            assert torch.equal(got[0].cpu(), want[0]), (n, k)
+            assert torch.equal(got[1].cpu(), want[1]), (n, k)
+    n = 5_000_000
+    top = np.uint64(1 << 63)
+    keys = r.integers(0, 1 << 63, n, dtype=np.uint64)
+    keys[::7] |= top
+    keys[::11] = PAD
+    for spl in [np.sort(r.choice(keys, m)) for m in (1, 3, 4095)] + [
+            np.sort(np.r_[keys[:2], keys[:2], top, top]), np.full(3, PAD)]:
+        pk = torch.from_numpy(keys.view(np.int64))
+        sp = torch.from_numpy(spl.view(np.int64))
+        want = CK.range_partition_plain(pk, sp)
+        got = CK.range_partition(pk.to(dev), sp.to(dev))
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want), len(spl)

@@ -1,10 +1,11 @@
 """The port stands alone: importing every module of bodo_tpu_torch pulls in
 neither JAX nor the JAX package (nor pandas/pyarrow, which only its
 readers and converters import when called); its entry points default to
-CUDA and raise without it instead of running on the CPU; the CUDA kernel
-wrappers never fall back to their plain versions for a tensor that is
-not on the CPU. One test runs every check (see tests/torch_parity.py on why
-each test_torch_* file holds one test)."""
+CUDA and raise without it instead of running on the CPU (the 1D ones too:
+make_mesh, Table.shard on the default mesh, the sharded pipelines); the
+CUDA kernel wrappers never fall back to their plain versions for a
+tensor that is not on the CPU. One test runs every check (see
+tests/torch_parity.py on why each test_torch_* file holds one test)."""
 
 import os
 import subprocess
@@ -33,11 +34,18 @@ import torch
 if not torch.cuda.is_available():
     from bodo_tpu_torch.workloads.taxi import pipeline
     from bodo_tpu_torch.workloads import star_join
+    from bodo_tpu_torch.parallel.mesh import make_mesh
     from bodo_tpu_torch.table import Table
     import numpy as np
+    cpu_table = Table.from_numpy({"a": np.arange(3)}, device="cpu")
     for call in (lambda: pipeline(sys.argv[1], sys.argv[2]),
+                 lambda: pipeline(sys.argv[1], sys.argv[2], shard=True),
                  lambda: star_join.pipeline(*star_join.gen_star_arrays(10)),
-                 lambda: Table.from_numpy({"a": np.arange(3)})):
+                 lambda: star_join.pipeline(*star_join.gen_star_arrays(10),
+                                            shard=True),
+                 lambda: Table.from_numpy({"a": np.arange(3)}),
+                 lambda: make_mesh(4),
+                 lambda: cpu_table.shard()):
         try:
             call()
         except RuntimeError as e:
@@ -108,13 +116,35 @@ def _check_hash_probe_never_falls_back_off_the_cpu():
     assert CK.launches == before
 
 
+def _check_partition_kernels_never_fall_back_off_the_cpu():
+    import torch
+    from bodo_tpu_torch.ops import cuda_kernels as CK
+    before = dict(CK.launches)
+    dest = torch.zeros(8, dtype=torch.int32)
+    ok = torch.ones(8, dtype=torch.bool)
+    for args in ((dest.to("meta"), ok), (dest, ok.to("meta"))):
+        with pytest.raises(ValueError, match="CUDA"):
+            CK.partition_rank(*args, 4)
+    pk = torch.zeros(8, dtype=torch.int64)
+    spl = torch.zeros(3, dtype=torch.int64)
+    for args in ((pk.to("meta"), spl), (pk, spl.to("meta"))):
+        with pytest.raises(ValueError, match="CUDA"):
+            CK.range_partition(*args)
+    rank, counts = CK.partition_rank(dest, ok, 4)  # all on the CPU
+    assert rank.tolist() == list(range(8)) and counts.tolist() == [8, 0, 0, 0]
+    assert CK.range_partition(pk, spl).tolist() == [3] * 8
+    assert CK.launches == before
+
+
 def _check_kernel_build_is_lazy():
     """No kernel is built or loaded while the modules import: the build
     directory is keyed by source and flags, and nothing loaded it."""
     from bodo_tpu_torch.ops import cuda_kernels as CK
     assert CK._entry_fns == {} or all(
         CK.library_path(n).exists() for n in CK._entry_fns)
-    for name in ("lut_gather", "hash_probe"):
+    assert sorted(CK.SOURCES) == ["hash_probe", "lut_gather",
+                                  "partition_rank", "range_partition"]
+    for name in CK.SOURCES:
         path = CK.library_path(name)
         assert path.parent == REPO / "build"
         assert path.name.startswith(f"lib{name}.") and path.suffix == ".so"
@@ -125,4 +155,5 @@ def test_port_stands_alone(torch_one_thread, tmp_path):
     _check_resolve_device_defaults_to_cuda()
     _check_lut_gather_never_falls_back_off_the_cpu()
     _check_hash_probe_never_falls_back_off_the_cpu()
+    _check_partition_kernels_never_fall_back_off_the_cpu()
     _check_kernel_build_is_lazy()

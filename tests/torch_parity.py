@@ -9,14 +9,24 @@ keeps at process level:
     trace_count, trace_counts (interpret-mode kernels bump the counts);
   - every bodo_tpu.config field, and the process environment that
     set_config exports to;
-  - the active mesh.
+  - the active mesh, and the meshes bodo_tpu.parallel.shuffle keeps by
+    key (_MESHES);
+  - what the reference's 1D entry points record: the comm observatory
+    (bodo_tpu.parallel.comm), the adaptive-execution counters and
+    observations (bodo_tpu.plan.adaptive), the lockstep counters
+    (bodo_tpu.analysis.lockstep) and the trace events
+    (bodo_tpu.utils.tracing).
 
 It also turns the reference's progcheck off (ROADMAP fault F1: progcheck
 breaks on this tree's jax), and its fusion and fused-join caches off
 (config.fusion, config.fusion_join): the reference's hash join would
 otherwise keep its build table in `fusion_join._build_cache`, which
-would outlive the test in the worker. Kernels run in interpret mode only through an
-explicit `interpret=True`, never by flipping FORCE_INTERPRET. torch runs
+would outlive the test in the worker. Its memory governor is off
+(config.mem_governor), so its broadcast decisions take the rows-only
+rule the port has, and so is its comm accounting
+(config.comm_accounting), whose metrics histograms have no way back.
+Kernels run in interpret mode only through an explicit
+`interpret=True`, never by flipping FORCE_INTERPRET. torch runs
 on one intra-op thread in these tests, so they add no more CPU load than
 any other test of the suite.
 
@@ -32,6 +42,7 @@ runs which JAX test file, nor leave state behind for one.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import os
 from typing import Dict
@@ -51,6 +62,41 @@ def torch_one_thread():
         torch.set_num_threads(prev)
 
 
+def _process_records():
+    """The reference's process-level records that its 1D calls write, as
+    (module, attribute, snapshot) triples."""
+    from bodo_tpu.analysis import lockstep
+    from bodo_tpu.parallel import comm
+    from bodo_tpu.parallel import shuffle
+    from bodo_tpu.plan import adaptive
+    from bodo_tpu.utils import tracing
+    names = ((comm, ("_sites", "_last", "_seq")),
+             (adaptive, ("_counters", "_observed", "_qerr")),
+             (lockstep, ("_stats",)),
+             (tracing, ("_events", "_agg", "_tids", "_query_meta",
+                        "_dropped")),
+             (shuffle, ("_MESHES",)))
+    # the meshes and the trace events are held, not changed in place
+    shallow = ("_MESHES", "_events")
+    return [(mod, name, (copy.copy if name in shallow else copy.deepcopy)(
+        getattr(mod, name))) for mod, attrs in names for name in attrs]
+
+
+def _restore_records(saved) -> None:
+    """Put the snapshots back into the objects the modules hold (other
+    modules keep references to them), or rebind plain values."""
+    for mod, name, snap in saved:
+        cur = getattr(mod, name)
+        if isinstance(cur, dict):
+            cur.clear()
+            cur.update(snap)
+        elif hasattr(cur, "clear") and hasattr(cur, "extend"):
+            cur.clear()
+            cur.extend(snap)
+        else:
+            setattr(mod, name, snap)
+
+
 @contextlib.contextmanager
 def reference_state():
     from bodo_tpu.config import config
@@ -63,13 +109,17 @@ def reference_state():
     pk = (PK.FORCE_INTERPRET, PK._runtime_disabled, PK.trace_count,
           dict(PK.trace_counts))
     mesh = mesh_mod._active_mesh
+    records = _process_records()
     # attributes: nothing is exported to the environment
     config.progcheck = False
     config.fusion = False
     config.fusion_join = False
+    config.mem_governor = False
+    config.comm_accounting = False
     try:
         yield
     finally:
+        _restore_records(records)
         for k, v in cfg.items():
             setattr(config, k, v)
         if dict(os.environ) != env:
@@ -98,6 +148,8 @@ _REF_ROUTES = {
     "groupby_hashed": ("bodo_tpu.ops.groupby", "groupby_local_hashed"),
     "groupby_sort": ("bodo_tpu.relational", "groupby_local"),
     "sort_local": ("bodo_tpu.relational", "sort_local"),
+    "join_broadcast": ("bodo_tpu.relational", "_join_broadcast"),
+    "sort_sharded": ("bodo_tpu.relational", "sort_sharded"),
 }
 
 
@@ -108,13 +160,18 @@ def reference_routes():
     found the build side unfit (None) and an unresolved hash groupby do
     not. `_join_rep` counts as join_rep_<method>, the method of its last
     join_local call (hash, or sort after a hash run that did not
-    resolve)."""
+    resolve). `_join_sharded` counts as join_shuffle when it is not the
+    broadcast join's, and `groupby_sharded` as groupby_sharded_<method>,
+    the method of its last partial stage."""
     import importlib
+    import bodo_tpu.parallel.shuffle as ref_shuffle
     import bodo_tpu.relational as ref_rel
     counts = {name: 0 for name in _REF_ROUTES}
-    counts.update(join_rep_hash=0, join_rep_sort=0)
+    counts.update(join_rep_hash=0, join_rep_sort=0, join_shuffle=0,
+                  groupby_sharded_hash=0, groupby_sharded_sort=0)
     saved = []
     last_method = ["sort"]
+    partial_method = ["sort"]
 
     def join_local_spy(*a, _orig=ref_rel.join_local, **k):
         last_method[0] = k.get("method", a[8] if len(a) > 8 else "sort")
@@ -125,10 +182,29 @@ def reference_routes():
         counts[f"join_rep_{last_method[0]}"] += 1
         return out
 
-    for fname, spy in (("join_local", join_local_spy),
-                       ("_join_rep", join_rep_spy)):
-        saved.append((ref_rel, fname, getattr(ref_rel, fname)))
-        setattr(ref_rel, fname, spy)
+    def join_sharded_spy(*a, _orig=ref_rel._join_sharded, **k):
+        out = _orig(*a, **k)
+        if not k.get("broadcast", a[6] if len(a) > 6 else False):
+            counts["join_shuffle"] += 1
+        return out
+
+    def partial_spy(*a, _orig=ref_shuffle._build_groupby_partial, **k):
+        partial_method[0] = k.get("method", a[3] if len(a) > 3 else "sort")
+        return _orig(*a, **k)
+
+    def groupby_sharded_spy(*a, _orig=ref_rel.groupby_sharded, **k):
+        out = _orig(*a, **k)
+        counts[f"groupby_sharded_{partial_method[0]}"] += 1
+        return out
+
+    for mod, fname, spy in (
+            (ref_rel, "join_local", join_local_spy),
+            (ref_rel, "_join_rep", join_rep_spy),
+            (ref_rel, "_join_sharded", join_sharded_spy),
+            (ref_shuffle, "_build_groupby_partial", partial_spy),
+            (ref_rel, "groupby_sharded", groupby_sharded_spy)):
+        saved.append((mod, fname, getattr(mod, fname)))
+        setattr(mod, fname, spy)
     for route, (modname, fname) in _REF_ROUTES.items():
         mod = importlib.import_module(modname)
         orig = getattr(mod, fname)
@@ -150,6 +226,23 @@ def reference_routes():
             setattr(mod, fname, orig)
 
 
+@contextlib.contextmanager
+def both_configs(**kwargs):
+    """Set config fields in both packages for a block, then put both back
+    (the port's config is process state of the worker too)."""
+    from bodo_tpu.config import config as ref_config
+    from bodo_tpu_torch.config import config as port_config
+    saved = [(c, k, getattr(c, k)) for c in (ref_config, port_config)
+             for k in kwargs]
+    for c, k, _ in saved:
+        setattr(c, k, kwargs[k])
+    try:
+        yield
+    finally:
+        for c, k, v in saved:
+            setattr(c, k, v)
+
+
 def port_routes_reset():
     from bodo_tpu_torch import relational as PR
     PR.reset_route_counts()
@@ -158,24 +251,49 @@ def port_routes_reset():
 
 def export_reference(t) -> Dict[str, tuple]:
     """A reference Table's Column fields as numpy, for
-    bodo_tpu_torch.table.from_reference_arrays."""
-    t = t.gather() if t.distribution == "1D" else t
+    bodo_tpu_torch.table.from_reference_arrays: a 1D table's global
+    arrays as they lie, shard by shard (its per-shard counts are
+    `t.counts`; `to_port` passes both)."""
     return {n: (np.asarray(c.data),
                 None if c.valid is None else np.asarray(c.valid),
                 c.dtype.name, c.dictionary, c.vrange)
             for n, c in t.columns.items()}
 
 
+def to_port(t, device="cpu"):
+    """The port's Table of the same layout as the reference Table `t`
+    (a 1D table keeps its shards and per-shard counts)."""
+    from bodo_tpu_torch.table import from_reference_arrays
+    return from_reference_arrays(export_reference(t), t.nrows,
+                                 device=device, counts=t.counts)
+
+
+def _live_rows(t) -> np.ndarray:
+    """Positions of the real rows: every shard's, in shard order."""
+    if t.counts is None:
+        return np.arange(t.nrows)
+    per = t.capacity // len(t.counts)
+    return np.concatenate([np.arange(i * per, i * per + int(c))
+                           for i, c in enumerate(t.counts)]
+                          + [np.zeros(0, np.int64)])
+
+
 def assert_same_table(port, ref, float_rtol: float = 0.0,
                       check_vrange: bool = False) -> None:
     """Column by column, the port's physical values against the
-    reference's over the real rows: names, dtypes, capacity, dictionaries
-    and validity exactly; data bit-identical, floats within `float_rtol`
-    (NaN matching NaN)."""
+    reference's over the real rows: names, dtypes, distribution, per-shard
+    counts, capacity, dictionaries and validity exactly; data
+    bit-identical, floats within `float_rtol` (NaN matching NaN)."""
     assert port.nrows == ref.nrows
     assert port.names == ref.names
+    assert port.distribution == ref.distribution
+    if ref.counts is None:
+        assert port.counts is None
+    else:
+        np.testing.assert_array_equal(port.counts, ref.counts)
     assert port.capacity == ref.capacity
     n = ref.nrows
+    live = _live_rows(ref)
     for name in ref.names:
         pc, rc = port.column(name), ref.column(name)
         assert pc.dtype.name == rc.dtype.name, name
@@ -186,11 +304,12 @@ def assert_same_table(port, ref, float_rtol: float = 0.0,
                                           err_msg=name)
         assert (pc.valid is None) == (rc.valid is None), name
         if rc.valid is not None:
-            np.testing.assert_array_equal(pc.valid[:n].cpu().numpy(),
-                                          np.asarray(rc.valid)[:n],
+            np.testing.assert_array_equal(pc.valid.cpu().numpy()[live],
+                                          np.asarray(rc.valid)[live],
                                           err_msg=name)
-        got = pc.data[:n].cpu().numpy()
-        want = np.asarray(rc.data)[:n]
+        got = pc.data.cpu().numpy()[live]
+        want = np.asarray(rc.data)[live]
+        assert len(want) == n
         if want.dtype.kind == "f" and float_rtol > 0:
             np.testing.assert_allclose(got, want, rtol=float_rtol, atol=0,
                                        err_msg=name)
