@@ -45,6 +45,18 @@ class Config:
     aqe_skew_frac: float = 0.3
     # Probe sides smaller than this skip skew detection.
     aqe_skew_min_rows: int = 100_000
+    # Device-side parquet decode (io/device_decode.py): read_parquet ships
+    # raw page bytes and decodes PLAIN fixed-width / dictionary / RLE-bool
+    # pages and definition levels on the device. Columns whose encoding
+    # the device route does not cover (DELTA_*, BYTE_STREAM_SPLIT,
+    # non-dictionary strings, nested) take the host pyarrow decode, per
+    # column. Off -> every page decodes on the host.
+    device_decode: bool = True
+    # Minimum estimated decoded size (uncompressed bytes, from the footer's
+    # row-group totals) before a read takes the device route; smaller
+    # reads decode on the host. 0 -> always take the device route when
+    # enabled.
+    device_decode_min_bytes: int = 1 << 20
 
 
 config = Config()

@@ -8,12 +8,25 @@ from one host min/max pass.
 
 from __future__ import annotations
 
+import datetime as _dtm
 from typing import Optional, Sequence
+
+import numpy as np
 
 from bodo_tpu_torch.config import resolve_device
 from bodo_tpu_torch.io.arrow_bridge import arrow_to_table
-from bodo_tpu_torch.io.parquet import _stat_int
 from bodo_tpu_torch.table.table import Table
+
+
+def _stat_int(v) -> Optional[int]:
+    """A min/max as the column's physical integer, else None."""
+    if isinstance(v, (int, np.integer)):
+        return int(v)
+    if isinstance(v, _dtm.datetime):
+        return int(np.datetime64(v, "ns").astype(np.int64))
+    if isinstance(v, _dtm.date):  # DATE: days
+        return int(np.datetime64(v, "D").astype(np.int64))
+    return None
 
 
 def read_csv(path: str, parse_dates: Optional[Sequence[str]] = None,

@@ -32,7 +32,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 # kernel name -> CUDA source under csrc/
 SOURCES = {"lut_gather": "lut_gather.cu", "hash_probe": "hash_probe.cu",
            "partition_rank": "partition_rank.cu",
-           "range_partition": "range_partition.cu"}
+           "range_partition": "range_partition.cu",
+           "hybrid_expand": "hybrid_expand.cu"}
 _P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 # kernel name -> (C entry point, ctypes argument types); pointers and the
 # stream are c_void_p so ctypes passes them at full width
@@ -49,12 +50,17 @@ _ENTRIES = {
     # pk, splitters, out, n, n_spl, stream
     "range_partition": ("range_partition_launch",
                         [_P, _P, _P, _I64, _I, _P]),
+    # data, nb, starts, is_rle, vals, bits, n_runs, bw, out, n, stream
+    "hybrid_expand": ("hybrid_expand_launch",
+                      [_P, _I64, _P, _P, _P, _P, _I, _I, _P, _I64, _P]),
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# launches per kernel since the last reset_launches()
-launches: Dict[str, int] = {name: 0 for name in SOURCES}
+# launches per kernel since the last reset_launches(); "dict_gather" counts
+# the launches of lut_gather's kernel from the parquet decoder's
+# dictionary remap, apart from its other call sites
+launches: Dict[str, int] = {name: 0 for name in (*SOURCES, "dict_gather")}
 # nvcc's output (register and shared-memory use) per kernel built here
 build_logs: Dict[str, str] = {}
 
@@ -157,13 +163,16 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, dim: int):
                          f"shape {tuple(t.shape)}")
 
 
-def _launch(name: str, dev: torch.device, *args) -> None:
+def _launch(name: str, dev: torch.device, *args,
+            counter: Optional[str] = None) -> None:
+    """Launch kernel `name` on the current stream of `dev` and count it
+    under `counter` (the kernel's own name by default)."""
     fn = _entry(name)
     with torch.cuda.device(dev):
         rc = fn(*args, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")
-    launches[name] += 1
+    launches[counter or name] += 1
 
 
 def lut_gather(codes: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
@@ -176,19 +185,32 @@ def lut_gather(codes: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
     (pallas_kernels.py:28, applied at relational.py:1404-1406) chose
     between its one-hot MXU kernel and XLA's gather, two spellings of
     one function; it was the MXU's limit, not Hopper's."""
+    return _lut_gather(codes, lut, "lut_gather")
+
+
+def dict_gather(codes: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
+    """The parquet decoder's string-dictionary rank remap lut[codes]
+    (the reference's `dict_gather` route, pallas_kernels.py:633, called
+    from io/device_decode.py:1187): lut_gather's kernel, with its
+    launches counted as launches["dict_gather"]."""
+    return _lut_gather(codes, lut, "dict_gather")
+
+
+def _lut_gather(codes: torch.Tensor, lut: torch.Tensor,
+                counter: str) -> torch.Tensor:
     if codes.device.type == "cpu" and lut.device.type == "cpu":
         return lut_gather_plain(codes, lut)
-    dev = _on_one_cuda_device("lut_gather", (codes, lut))
-    _check("lut_gather codes", codes, torch.int32, 1)
-    _check("lut_gather lut", lut, torch.int32, 1)
+    dev = _on_one_cuda_device(counter, (codes, lut))
+    _check(f"{counter} codes", codes, torch.int32, 1)
+    _check(f"{counter} lut", lut, torch.int32, 1)
     k = lut.shape[0]
     if not 1 <= k < 2 ** 31:
-        raise ValueError(f"lut_gather: LUT of {k} slots")
+        raise ValueError(f"{counter}: LUT of {k} slots")
     out = torch.empty_like(codes)
     if codes.shape[0] == 0:
         return out
     _launch("lut_gather", dev, codes.data_ptr(), lut.data_ptr(),
-            out.data_ptr(), codes.shape[0])
+            out.data_ptr(), codes.shape[0], counter=counter)
     return out
 
 
@@ -383,4 +405,88 @@ def range_partition(pk: torch.Tensor, splitters: torch.Tensor):
     if pk.shape[0]:
         _launch("range_partition", dev, pk.data_ptr(), splitters.data_ptr(),
                 out.data_ptr(), pk.shape[0], n_spl)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# hybrid_expand: replaces pallas_kernels.py:536 _hybrid_expand_kernel
+# (route hybrid_expand, :615, reached from io/device_decode's page decode)
+# ---------------------------------------------------------------------------
+
+HYBRID_MAX_BITWIDTH = 24  # the 4-byte window of the bit extractor
+
+
+def hybrid_expand_plain(data: torch.Tensor, starts: torch.Tensor,
+                        is_rle: torch.Tensor, vals: torch.Tensor,
+                        bits: torch.Tensor, bw: int,
+                        n_bucket: int) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: the JAX package's XLA body
+    (bodo_tpu/io/device_decode.py:486-525). The owning run of each output
+    index comes from scattering each run's index at its start and a
+    running max (sentinel starts past n_bucket drop); RLE runs give
+    their value, bit-packed runs bw bits read little-endian through a
+    window of ceil((7 + bw) / 8) bytes, byte indices clipped to the
+    page."""
+    dev = data.device
+    i = torch.arange(n_bucket, dtype=torch.int64, device=dev)
+    n_runs = starts.shape[0]
+    st = starts.long()
+    owner = torch.zeros(n_bucket + 1, dtype=torch.int64, device=dev)
+    owner.scatter_reduce_(
+        0, torch.where((st >= 0) & (st < n_bucket), st, n_bucket),
+        torch.arange(n_runs, dtype=torch.int64, device=dev), "amax")
+    r = torch.cummax(owner[:n_bucket], 0).values
+    rv = torch.where(is_rle, vals, -1)[r]
+    if bw > 0:
+        bp = (bits.long() - st * bw)[r] + i * bw
+        byte0 = bp >> 3
+        nb = data.shape[0]
+        w = torch.zeros(n_bucket, dtype=torch.int64, device=dev)
+        for k in range((bw + 14) // 8):
+            w |= data[(byte0 + k).clamp(0, nb - 1)].long() << (8 * k)
+        packed = ((w >> (bp & 7)) & ((1 << bw) - 1)).to(torch.int32)
+    else:
+        packed = torch.zeros(n_bucket, dtype=torch.int32, device=dev)
+    return torch.where(rv >= 0, rv, packed)
+
+
+def hybrid_expand(data: torch.Tensor, starts: torch.Tensor,
+                  is_rle: torch.Tensor, vals: torch.Tensor,
+                  bits: torch.Tensor, bw: int, n_bucket: int) -> torch.Tensor:
+    """Expand parquet RLE/bit-packed hybrid runs into int32 [n_bucket]
+    values: uint8 page bytes data [nb], run tables starts int32
+    (nondecreasing; padding runs carry a start past n_bucket), is_rle
+    bool, vals int32, bits int64 (bit offset of a bit-packed run's first
+    value), all [n_runs], and the bit width 0 <= bw <= 24. CPU tensors
+    take the plain version; CUDA tensors launch the kernel
+    (csrc/hybrid_expand.cu) or raise.
+
+    The reference gates its kernel to <= 2048 runs and n_bucket, nb * 8
+    below 2^24 (pallas_kernels.py:624-626), the f32 exactness of its MXU
+    search; the CUDA kernel searches in int32 and offsets bits in int64,
+    so the port drops that gate, as it dropped lut_gather's. The
+    reference's kernel and its XLA body give the same integers, so the
+    result does not change."""
+    args = (data, starts, is_rle, vals, bits)
+    if all(t.device.type == "cpu" for t in args):
+        return hybrid_expand_plain(*args, bw, n_bucket)
+    dev = _on_one_cuda_device("hybrid_expand", args)
+    _check("hybrid_expand data", data, torch.uint8, 1)
+    _check("hybrid_expand starts", starts, torch.int32, 1)
+    _check("hybrid_expand is_rle", is_rle, torch.bool, 1)
+    _check("hybrid_expand vals", vals, torch.int32, 1)
+    _check("hybrid_expand bits", bits, torch.int64, 1)
+    n_runs = starts.shape[0]
+    if not (is_rle.shape[0] == vals.shape[0] == bits.shape[0] == n_runs):
+        raise ValueError("hybrid_expand: run tables differ in length")
+    if not 1 <= n_runs < 2 ** 31 or data.shape[0] < 1:
+        raise ValueError(f"hybrid_expand: {n_runs} runs over "
+                         f"{data.shape[0]} page bytes")
+    if not 0 <= bw <= HYBRID_MAX_BITWIDTH:
+        raise ValueError(f"hybrid_expand: bit width {bw}")
+    out = torch.empty(n_bucket, dtype=torch.int32, device=dev)
+    if n_bucket:
+        _launch("hybrid_expand", dev, data.data_ptr(), data.shape[0],
+                starts.data_ptr(), is_rle.data_ptr(), vals.data_ptr(),
+                bits.data_ptr(), n_runs, bw, out.data_ptr(), n_bucket)
     return out

@@ -14,7 +14,10 @@ per source, all started together), then:
      {1, 4, 4096} buckets; range_partition at N = 5,000,000 for 1, 3
      and 4095 splitters, with keys whose top bit is set, the padding
      key, splitters equal to keys or duplicated, and an all-padding
-     shard's splitters; and times lut_gather, its plain version and the
+     shard's splitters; hybrid_expand on RLE-only, bit-packed-only and
+     mixed streams of 1, 100 and 20,000 values at bit widths 0, 1, 2, 8,
+     17 and 24 with run tables of 40 and 4,096 runs, over the whole
+     padded output; and times lut_gather, its plain version and the
      PyTorch call that computes the same function;
   2. drives the main paths, each with the route and launch counts set to
      0 just before it and read just after:
@@ -23,6 +26,16 @@ per source, all started together), then:
        (lut_gather) and the dense groupby, against its numpy oracle (keys
        and counts exact, avg_miles within rtol 1e-9: float64 sums
        accumulated with atomics, in another order);
+     - the taxi read: the 20,000,000-row trips file as gen_taxi_data
+       writes it (pandas' to_parquet with pyarrow's defaults: 20 row
+       groups, snappy, dictionary pages with the fall-back to PLAIN),
+       read by read_parquet through the device decode route
+       (hybrid_expand on every dictionary-index page, lut_gather as
+       dict_gather once a row group for the string column), every column
+       on the device, bit-identical to the arrays' table; the pipeline
+       from that file against the numpy oracle and, row for row, the REP
+       run; hybrid_expand is then held against its plain version and
+       timed on a page of each bit width the read decoded;
      - the star-schema join at 20,000,000 fact and 5,000,000 dimension
        rows (bench.py's --suite join shape, about one month of TPC-H
        SF10 lineitem against its orders), through the hash join
@@ -55,6 +68,7 @@ naming the device.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -73,6 +87,8 @@ AVG_RTOL = 1e-9
 HBM_BYTES_PER_S = 3.35e12
 # the spin that holds the card while a timing loop is queued (~50 ms)
 SPIN_CYCLES = 100_000_000
+# the taxi trips file: pyarrow's default layout, as gen_taxi_data writes it
+READ_ROW_GROUPS = 20       # 1,048,576-row row groups of 20M rows
 
 
 def device_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -379,12 +395,14 @@ def check_range_partition(dev):
 
 
 class _Capture:
-    """Record the arguments of every call of CK.<name> while active."""
+    """Record the arguments of every call of <module>.<name> (CK by
+    default) while active."""
 
-    def __init__(self, name: str):
-        from bodo_tpu_torch.ops import cuda_kernels as CK
-        self.ck, self.name, self.calls = CK, name, []
-        self.orig = getattr(CK, name)
+    def __init__(self, name: str, module=None):
+        if module is None:
+            from bodo_tpu_torch.ops import cuda_kernels as module
+        self.ck, self.name, self.calls = module, name, []
+        self.orig = getattr(module, name)
 
     def __enter__(self):
         def keep(*args):
@@ -473,6 +491,312 @@ def time_range_partition(args):
             "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": "bytes",
             "library_ms": library_ms}
+
+
+def encode_hybrid(rng, n: int, n_runs: int, bw: int, kind: str):
+    """A parquet RLE/bit-packed hybrid stream of `n` values in `n_runs`
+    runs (fewer when `n` is too small for them) of bit width `bw`:
+    'rle' runs only, 'packed' runs only (lengths in groups of 8) or
+    'mixed' (alternating). Returns (stream bytes, the values it holds)."""
+    import numpy as np
+    vbw = (bw + 7) // 8
+    kinds = {"rle": ["rle"], "packed": ["packed"],
+             "mixed": ["rle", "packed"]}[kind]
+    out = bytearray()
+    values = []
+
+    def uvarint(v):
+        while True:
+            b = v & 0x7F
+            v >>= 7
+            out.append(b | (0x80 if v else 0))
+            if not v:
+                return
+
+    left, k = n, 0
+    while left > 0:
+        runs_left = max(n_runs - k, 1)
+        ln = max(1, left // runs_left) if k < n_runs - 1 else left
+        if kinds[k % len(kinds)] == "rle":
+            v = int(rng.integers(0, 1 << bw)) if bw else 0
+            uvarint(ln << 1)
+            out += v.to_bytes(vbw, "little")
+            values.append(np.full(ln, v, np.int64))
+        else:
+            groups = -(-ln // 8)
+            vals = rng.integers(0, 1 << bw, groups * 8) if bw else \
+                np.zeros(groups * 8, np.int64)
+            uvarint(groups << 1 | 1)
+            planes = (vals[:, None] >> np.arange(bw)) & 1
+            out += np.packbits(planes.reshape(-1).astype(np.uint8),
+                               bitorder="little").tobytes()
+            values.append(vals)
+            ln = groups * 8  # a bit-packed run holds whole groups
+        left -= ln
+        k += 1
+    return bytes(out), np.concatenate(values)[:n]
+
+
+def check_hybrid_expand(dev):
+    """Phase 1 for hybrid_expand: bit-identity with its plain version on
+    RLE-only, bit-packed-only and mixed streams of 1, 100 and 20,000
+    values at bit widths 0, 1, 2, 8, 17 and 24, parsed into run tables
+    padded to 40 and 4,096 runs, over the whole padded output (the tail
+    past the last value included)."""
+    import numpy as np
+    import torch
+    from bodo_tpu_torch.io import device_decode as DD
+    from bodo_tpu_torch.ops import cuda_kernels as CK
+
+    rng = np.random.default_rng(SEED + 5)
+    for bw in (0, 1, 2, 8, 17, 24):
+        cases = 0
+        for kind in ("rle", "packed", "mixed"):
+            for n in (1, 100, 20_000):
+                for table in (40, 4096):
+                    stream, values = encode_hybrid(rng, n, table, bw, kind)
+                    rt = DD._parse_hybrid(stream, 0, len(stream), bw, n)
+                    n_bucket = DD._bucket(n, 128)
+                    padded = DD._pad_runs(rt, table, n_bucket + 1)
+                    data = np.zeros(DD._bucket(len(stream) + 4, 4096),
+                                    np.uint8)
+                    data[:len(stream)] = np.frombuffer(stream, np.uint8)
+                    args = [torch.from_numpy(a).to(dev)
+                            for a in (data, *padded)]
+                    got = CK.hybrid_expand(*args, bw, n_bucket)
+                    want = CK.hybrid_expand_plain(*args, bw, n_bucket)
+                    torch.cuda.synchronize()
+                    ok = bool(torch.equal(got, want)) and np.array_equal(
+                        got[:n].cpu().numpy(), values)
+                    if not ok:
+                        raise AssertionError(
+                            f"hybrid_expand differs from its plain version "
+                            f"or the stream at bw={bw} {kind} n={n} "
+                            f"runs={len(rt.starts)}/{table}")
+                    cases += 1
+        print(f"hybrid_expand bw={bw}: bit_identical=True on {cases} "
+              f"streams (rle, packed and mixed; 1, 100 and 20000 values; "
+              f"run tables of 40 and 4096), every output of the padded "
+              f"n_bucket compared, the values equal to the stream's")
+
+
+def run_taxi_read(trips, weather, rep_got, oracle):
+    """The taxi read: write the 20M-row trips file as gen_taxi_data does
+    (pandas' to_parquet with pyarrow's defaults), read it through
+    read_parquet's device route with the counts reset just before and
+    read just after, and hold the table bit-identical to the arrays'
+    table; then the pipeline from that file against the numpy oracle
+    and, row for row, the REP run. Returns (kernel launches of the cold
+    read, the arguments of every hybrid_expand call of a later read)."""
+    import tempfile
+    import numpy as np
+    import torch
+    from bodo_tpu_torch import relational as R
+    from bodo_tpu_torch.io import device_decode as DD
+    from bodo_tpu_torch.io import parquet as P
+    from bodo_tpu_torch.io.parquet import footer_metadata, read_parquet
+    from bodo_tpu_torch.ops import cuda_kernels as CK
+    from bodo_tpu_torch.workloads import profiling
+    from bodo_tpu_torch.workloads import taxi as T
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/trips.parquet"
+        t0 = time.perf_counter()
+        T.gen_taxi_data(MAIN_ROWS, path, f"{tmp}/weather.csv", seed=SEED)
+        encode_s = time.perf_counter() - t0
+        md = footer_metadata(path)
+        codecs = sorted({c.compression for g in md.row_groups
+                         for c in g.columns})
+        if md.num_row_groups != READ_ROW_GROUPS:
+            raise AssertionError(f"taxi read: {md.num_row_groups} row "
+                                 f"groups, want {READ_ROW_GROUPS}")
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        DD.reset_decode_counts()
+        CK.reset_launches()
+        t0 = time.perf_counter()
+        got = read_parquet(path)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        counts = dict(DD.decode_counts)
+        launches = dict(CK.launches)
+        peak = torch.cuda.max_memory_allocated()
+        print(f"taxi read: rows={got.nrows} row_groups={md.num_row_groups} "
+              f"codecs={codecs} file_bytes={os.path.getsize(path)} "
+              f"encode_s={encode_s:.3f} decode_s={decode_s:.4f} "
+              f"max_memory_allocated={peak}")
+        print(f"taxi read: decode_counts={counts} kernel_launches={launches}")
+        want_cols = len(got.names) * md.num_row_groups
+        if counts["host_decode_cols"] or \
+                counts["device_decode_cols"] != want_cols:
+            raise AssertionError(f"taxi read: not every column decoded on "
+                                 f"the device: {counts}")
+        if launches["hybrid_expand"] < 1 or \
+                launches["dict_gather"] != md.num_row_groups:
+            raise AssertionError(f"taxi read: hybrid_expand or dict_gather "
+                                 f"launches {launches}")
+        if got.names != trips.names or got.nrows != trips.nrows or \
+                got.capacity != trips.capacity:
+            raise AssertionError(f"taxi read: {got} vs the arrays' {trips}")
+        for name in trips.names:
+            a, b = got.column(name), trips.column(name)
+            same = (a.dtype is b.dtype and a.valid is None
+                    and b.valid is None and a.vrange == b.vrange
+                    and bool(torch.equal(a.data[:got.nrows],
+                                         b.data[:got.nrows])))
+            if b.dictionary is not None:
+                same = same and np.array_equal(a.dictionary, b.dictionary)
+            if not same:
+                raise AssertionError(f"taxi read: column {name} differs "
+                                     f"from the arrays' table")
+        print("taxi read: bit-identical to the arrays' table (data, no "
+              "masks, dictionaries; vranges are the footer's min/max, "
+              "equal to the arrays')")
+        del got
+
+        t0 = time.perf_counter()
+        read_parquet(path)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        with _Capture("hybrid_expand") as expand, \
+                _Capture("_run_page_program", DD) as pages:
+            tr = profiling.trace(lambda: read_parquet(path))
+        # the values each page holds, by its staged page bytes, so the
+        # kernel's bound counts only the bytes those values need
+        page_values = {args[1].data_ptr(): args[2] for args in pages.calls}
+        print(f"taxi read: decode_warm_s={warm_s:.4f} "
+              f"traced_wall_s={tr['traced_wall_s']:.4f} "
+              f"device_ms={tr['device_ms']:.3f} "
+              f"device_busy_share={tr['device_busy_share']:.4f}")
+        for r in tr["top_kernels_ms"][:8]:
+            print(f"taxi read: device {r['ms']:.3f} ms x{r['calls']} "
+                  f"{r['kernel'][:100]}")
+        for r in tr["top_ops_device_ms"][:8]:
+            print(f"taxi read: operator {r['ms']:.3f} ms x{r['calls']} "
+                  f"{r['op'][:100]}")
+        # where the read's wall goes, each stage and substage synchronized
+        # (the syncs add to the total)
+        spent = profiling.stage_means(
+            lambda: read_parquet(path), 1,
+            [(P, "footer_metadata"), (DD, "fetch_row_group"),
+             (DD, "decode_row_group"), (DD, "concat_tables_rep")],
+            [(P, "_raw_range", "raw range reads"),
+             (DD, "_decompress", "page decompression"),
+             (DD, "_parse_hybrid", "run-header walks"),
+             (DD._Staging, "to", "staging copy to the device"),
+             (DD, "_run_page_program", "page decodes"),
+             (CK, "dict_gather", "dict_gather")])
+        print("taxi read: stages (s, synchronized host clock, one read): "
+              + ", ".join(f"{k} {v:.4f}" for k, v in spent.items()))
+        # the host route on the same file: pyarrow's decode and the copy
+        # to the card, which the device route replaces as the default
+        for run in ("cold", "warm"):
+            t0 = time.perf_counter()
+            host = P._read_host([path], None, "cuda")
+            torch.cuda.synchronize()
+            print(f"taxi read: host route (pyarrow decode + copy to the "
+                  f"device, no footer ranges) {run} "
+                  f"s={time.perf_counter() - t0:.4f}")
+            del host
+
+        R.reset_route_counts()
+        CK.reset_launches()
+        t0 = time.perf_counter()
+        out = T.pipeline(path, weather)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        routes = {k: v for k, v in R.route_counts.items() if v}
+        file_launches = dict(CK.launches)
+        res = out.to_numpy()
+        T.check_against(res, oracle, rtol=AVG_RTOL)
+        T.check_against(res, rep_got, rtol=AVG_RTOL)
+    print(f"taxi read -> pipeline: groups={out.nrows} wall_s={wall_s:.4f} "
+          f"(read included) route_counts={routes} "
+          f"kernel_launches={file_launches}")
+    print(f"taxi read -> pipeline: matches the numpy oracle (avg_miles "
+          f"rtol={AVG_RTOL}) and, row for row, the REP run from arrays")
+    if file_launches["hybrid_expand"] < 1 or \
+            file_launches["dict_gather"] != READ_ROW_GROUPS or \
+            file_launches["lut_gather"] < 1:
+        raise AssertionError(f"taxi read -> pipeline: launches "
+                             f"{file_launches}")
+    return launches, expand.calls, page_values
+
+
+def hybrid_expand_bytes(starts, is_rle, bits, bw: int, n_values: int,
+                        n_bucket: int, nb: int) -> int:
+    """The bytes hybrid_expand must move for a page of `n_values` values:
+    the run fields (17 B) of each run that owns a value, the page bytes
+    that the bit-packed runs' values occupy (the staged buffer's padding
+    and the outputs past the last value read none the page needs) and
+    the n_bucket int32 outputs, each once."""
+    import numpy as np
+    st = starts.cpu().numpy().astype(np.int64)
+    live = st < n_values
+    ends = np.append(st[1:], n_values).clip(max=n_values)
+    page = 0
+    if bw > 0:
+        packed = live & ~is_rle.cpu().numpy()
+        lo = bits.cpu().numpy()[packed]
+        hi = lo + (ends[packed] - st[packed]) * bw
+        covered = np.zeros(nb, bool)
+        for a, b in zip(lo >> 3, (hi + 7) >> 3):
+            covered[max(a, 0):min(b, nb)] = True
+        page = int(covered.sum())
+    return 17 * int(live.sum()) + page + 4 * n_bucket
+
+
+def time_hybrid_expand(calls, page_values):
+    """Hold hybrid_expand against its plain version on the first page of
+    each bit width the taxi read decoded (`calls`: the arguments of each
+    call; `page_values`: the values of each page, by its page bytes'
+    address), and time both there; the kernel's line takes the width
+    with the most launches."""
+    import collections
+    import torch
+    from bodo_tpu_torch.ops import cuda_kernels as CK
+
+    launches_at = collections.Counter(args[5] for args in calls)
+    first = {}
+    for args in calls:
+        first.setdefault(args[5], args)
+    rows = {}
+    for bw in sorted(first):
+        args = first[bw]
+        data, starts, is_rle, vals, bits, _bw, n_bucket = args
+        got = CK.hybrid_expand(*args)
+        want = CK.hybrid_expand_plain(*args)
+        torch.cuda.synchronize()
+        err = int((got.long() - want.long()).abs().max())
+        if not torch.equal(got, want):
+            raise AssertionError(f"hybrid_expand differs from its plain "
+                                 f"version on the taxi read's page bw={bw}")
+        kernel_ms = device_ms(lambda: CK.hybrid_expand(*args))
+        plain_ms = device_ms(lambda: CK.hybrid_expand_plain(*args))
+        kernel_ms_again = device_ms(lambda: CK.hybrid_expand(*args))
+        n_runs = starts.shape[0]
+        n_values = page_values[data.data_ptr()]
+        nbytes = hybrid_expand_bytes(starts, is_rle, bits, bw, n_values,
+                                     n_bucket, data.shape[0])
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        print(f"hybrid_expand timing (taxi read page) bw={bw} "
+              f"n_values={n_values} n_bucket={n_bucket} "
+              f"run_table={n_runs} staged_page_bytes={data.shape[0]} "
+              f"launches_at_this_bw={launches_at[bw]}: "
+              f"bit_identical=True kernel_ms={kernel_ms:.6f} (again "
+              f"{kernel_ms_again:.6f}) plain_ms={plain_ms:.6f} "
+              f"bound_ms={bound_ms:.6f} ({nbytes} bytes at "
+              f"{HBM_BYTES_PER_S / 1e12} TB/s); library_ms=null (no single "
+              f"PyTorch call expands parquet hybrid runs)")
+        rows[bw] = (err, kernel_ms, plain_ms, bound_ms)
+    bw = max(launches_at, key=lambda b: (launches_at[b], b))
+    err, kernel_ms, plain_ms, bound_ms = rows[bw]
+    return {"name": "hybrid_expand", "route": "cuda",
+            "source": "bodo_tpu_torch/csrc/hybrid_expand.cu",
+            "replaces": "bodo_tpu/ops/pallas_kernels.py:536",
+            "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}
 
 
 def run_star():
@@ -787,13 +1111,20 @@ def main() -> int:
     check_hash_probe(dev)
     check_partition_rank(dev)
     check_range_partition(dev)
+    check_hybrid_expand(dev)
     # each main path launches its kernels: lut_gather on the taxi path,
+    # hybrid_expand and lut_gather (as dict_gather) on the taxi read,
     # hash_probe on the star path, partition_rank and range_partition on
     # the 1D taxi path
     taxi_launches, taxi_run = run_taxi(MAIN_ROWS, ("join_dense",
                                                    "groupby_dense"),
                                        "main path")
     lut["launches"] = taxi_launches["lut_gather"]
+    read_launches, expand_calls, page_values = run_taxi_read(*taxi_run)
+    lut["dict_gather_launches"] = read_launches["dict_gather"]
+    expand = time_hybrid_expand(expand_calls, page_values)
+    expand["launches"] = read_launches["hybrid_expand"]
+    del expand_calls
     star_launches, probe_args, star_run = run_star()
     probe = time_hash_probe(probe_args)
     probe["launches"] = star_launches["hash_probe"]
@@ -807,7 +1138,7 @@ def main() -> int:
     del rank_args, range_args
     run_star_1d(*star_run)
     del star_run
-    kernels = [lut, probe, rank, part]
+    kernels = [lut, probe, rank, part, expand]
     for k in kernels:
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']} was not launched on its "
@@ -818,8 +1149,10 @@ def main() -> int:
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")
-    print(json.dumps({"kernels": [{f: k[f] for f in order}
-                                  for k in kernels]}))
+    print(json.dumps({"kernels": [
+        {**{f: k[f] for f in order},
+         **{f: v for f, v in k.items() if f not in order}}
+        for k in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

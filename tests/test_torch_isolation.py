@@ -2,7 +2,8 @@
 neither JAX nor the JAX package (nor pandas/pyarrow, which only its
 readers and converters import when called); its entry points default to
 CUDA and raise without it instead of running on the CPU (the 1D ones too:
-make_mesh, Table.shard on the default mesh, the sharded pipelines); the
+make_mesh, Table.shard on the default mesh, the sharded pipelines; and
+read_parquet); the
 CUDA kernel wrappers never fall back to their plain versions for a
 tensor that is not on the CPU. One test runs every check (see
 tests/torch_parity.py on why each test_torch_* file holds one test)."""
@@ -36,6 +37,7 @@ if not torch.cuda.is_available():
     from bodo_tpu_torch.workloads import star_join
     from bodo_tpu_torch.parallel.mesh import make_mesh
     from bodo_tpu_torch.table import Table
+    from bodo_tpu_torch.io import read_parquet
     import numpy as np
     cpu_table = Table.from_numpy({"a": np.arange(3)}, device="cpu")
     for call in (lambda: pipeline(sys.argv[1], sys.argv[2]),
@@ -44,6 +46,7 @@ if not torch.cuda.is_available():
                  lambda: star_join.pipeline(*star_join.gen_star_arrays(10),
                                             shard=True),
                  lambda: Table.from_numpy({"a": np.arange(3)}),
+                 lambda: read_parquet(sys.argv[1]),
                  lambda: make_mesh(4),
                  lambda: cpu_table.shard()):
         try:
@@ -136,14 +139,40 @@ def _check_partition_kernels_never_fall_back_off_the_cpu():
     assert CK.launches == before
 
 
+def _check_decode_kernels_never_fall_back_off_the_cpu():
+    import torch
+    from bodo_tpu_torch.ops import cuda_kernels as CK
+    before = dict(CK.launches)
+    args = (torch.zeros(64, dtype=torch.uint8),
+            torch.tensor([0, 9], dtype=torch.int32),
+            torch.tensor([True, False]),
+            torch.tensor([5, 0], dtype=torch.int32),
+            torch.tensor([0, 0], dtype=torch.int64))
+    for i in range(len(args)):
+        mixed = list(args)
+        mixed[i] = mixed[i].to("meta")
+        with pytest.raises(ValueError, match="CUDA"):
+            CK.hybrid_expand(*mixed, 8, 16)
+    codes = torch.zeros(8, dtype=torch.int32)
+    lut = torch.arange(4, dtype=torch.int32)
+    for pair in ((codes.to("meta"), lut), (codes, lut.to("meta"))):
+        with pytest.raises(ValueError, match="CUDA"):
+            CK.dict_gather(*pair)
+    out = CK.hybrid_expand(*args, 8, 16)  # all on the CPU
+    assert out.tolist() == [5] * 9 + [0] * 7
+    assert CK.dict_gather(codes + 3, lut).tolist() == [3] * 8
+    assert CK.launches == before
+
+
 def _check_kernel_build_is_lazy():
     """No kernel is built or loaded while the modules import: the build
     directory is keyed by source and flags, and nothing loaded it."""
     from bodo_tpu_torch.ops import cuda_kernels as CK
     assert CK._entry_fns == {} or all(
         CK.library_path(n).exists() for n in CK._entry_fns)
-    assert sorted(CK.SOURCES) == ["hash_probe", "lut_gather",
-                                  "partition_rank", "range_partition"]
+    assert sorted(CK.SOURCES) == ["hash_probe", "hybrid_expand",
+                                  "lut_gather", "partition_rank",
+                                  "range_partition"]
     for name in CK.SOURCES:
         path = CK.library_path(name)
         assert path.parent == REPO / "build"
@@ -156,4 +185,5 @@ def test_port_stands_alone(torch_one_thread, tmp_path):
     _check_lut_gather_never_falls_back_off_the_cpu()
     _check_hash_probe_never_falls_back_off_the_cpu()
     _check_partition_kernels_never_fall_back_off_the_cpu()
+    _check_decode_kernels_never_fall_back_off_the_cpu()
     _check_kernel_build_is_lazy()

@@ -15,7 +15,12 @@ keeps at process level:
     (bodo_tpu.parallel.comm), the adaptive-execution counters and
     observations (bodo_tpu.plan.adaptive), the lockstep counters
     (bodo_tpu.analysis.lockstep) and the trace events
-    (bodo_tpu.utils.tracing).
+    (bodo_tpu.utils.tracing);
+  - the codecs the reference's parquet `_plan_chunk` caches
+    (bodo_tpu.io.device_decode._codec_cache). The decode tests call
+    only its pure host functions, never its read route, whose footer,
+    schema and program caches and io_pool counters later JAX tests
+    read.
 
 It also turns the reference's progcheck off (ROADMAP fault F1: progcheck
 breaks on this tree's jax), and its fusion and fused-join caches off
@@ -66,6 +71,7 @@ def _process_records():
     """The reference's process-level records that its 1D calls write, as
     (module, attribute, snapshot) triples."""
     from bodo_tpu.analysis import lockstep
+    from bodo_tpu.io import device_decode
     from bodo_tpu.parallel import comm
     from bodo_tpu.parallel import shuffle
     from bodo_tpu.plan import adaptive
@@ -75,9 +81,11 @@ def _process_records():
              (lockstep, ("_stats",)),
              (tracing, ("_events", "_agg", "_tids", "_query_meta",
                         "_dropped")),
-             (shuffle, ("_MESHES",)))
-    # the meshes and the trace events are held, not changed in place
-    shallow = ("_MESHES", "_events")
+             (shuffle, ("_MESHES",)),
+             (device_decode, ("_codec_cache",)))
+    # the meshes, the trace events and the codecs are held, not changed
+    # in place
+    shallow = ("_MESHES", "_events", "_codec_cache")
     return [(mod, name, (copy.copy if name in shallow else copy.deepcopy)(
         getattr(mod, name))) for mod, attrs in names for name in attrs]
 
