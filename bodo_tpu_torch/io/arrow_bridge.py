@@ -67,6 +67,10 @@ def _arrow_column(arr, cap: int, dev) -> Column:
             ticks[nat] = 0
             valid_np = ~nat if valid_np is None else (valid_np & ~nat)
         return _column(ticks, valid_np, cap, dt.DATETIME, dev)
+    if pa.types.is_duration(typ):
+        # int64 ns ticks, nulls 0 + mask (like timestamps)
+        ticks = arr.cast(pa.duration("ns")).cast(pa.int64()).fill_null(0)
+        return _column(ticks.to_numpy(), valid_np, cap, dt.TIMEDELTA, dev)
     if pa.types.is_date(typ):
         days = arr.cast(pa.int32()).to_numpy(zero_copy_only=False)
         return _column(np.nan_to_num(days).astype(np.int32), valid_np, cap,

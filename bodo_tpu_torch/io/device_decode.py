@@ -45,13 +45,14 @@ the runtime slice and change no result.
 Bit-identical parity with `arrow_bridge._arrow_column` is the contract:
 float nulls become NaN with no mask, int/bool/timestamp/date nulls
 become 0/False + mask, string nulls carry raw code 0 *before* the
-sorted-rank remap, timestamps scale to ns ticks.
+sorted-rank remap, timestamps and durations scale to ns ticks.
 
 The table dtype of a column comes from its parquet logical type (the
-JAX package reads pyarrow's arrow schema). One case differs: an arrow
-duration is stored as an unannotated INT64, and only the file's
-ARROW:schema metadata says it was a duration, so the device route reads
-it as int64 where the host route gives timedelta64[ns] (the same ticks).
+JAX package reads pyarrow's arrow schema), and for an arrow duration,
+which parquet stores as an unannotated INT64, from the file's
+ARROW:schema entry, which the footer reader parses without pyarrow
+(`FileMetaData.durations`): timedelta64[ns], nulls 0 + mask, as the
+host route reads it.
 """
 
 from __future__ import annotations
@@ -601,18 +602,25 @@ _CONVERTED_INTS = {"INT_8": (8, True), "INT_16": (16, True),
                    "UINT_8": (8, False), "UINT_16": (16, False),
                    "UINT_32": (32, False), "UINT_64": (64, False)}
 _UNIT_SCALE = {"ns": 1, "us": 1000, "ms": 1_000_000}
+# arrow duration unit -> ns multiplier (io/parquet.FileMetaData.durations)
+_DURATION_SCALE = {"ns": 1, "us": 1000, "ms": 1_000_000, "s": 1_000_000_000}
 _CONVERTED_TS = {"TIMESTAMP_MILLIS": "ms", "TIMESTAMP_MICROS": "us"}
 _UNANNOTATED = {"INT32": "int32", "INT64": "int64", "FLOAT": "float32",
                 "DOUBLE": "float64"}
 
 
-def _logical_out(cs, phys: str):
+def _logical_out(cs, phys: str, duration: Optional[str] = None):
     """Map a flat leaf's parquet types to (np dtype name, table DType, ns
     scale, is_string), the column arrow_bridge makes of the arrow type
-    pyarrow reads the leaf as; or raise Unsupported."""
+    pyarrow reads the leaf as; or raise Unsupported. `duration`: the
+    unit of an arrow duration the file's ARROW:schema declares the leaf,
+    stored as an unannotated INT64."""
     lt = cs.logical_type
     kind = lt.kind if lt is not None else None
     ct = cs.converted_type
+    if duration is not None and kind is None and ct is None and \
+            phys == "INT64":
+        return "int64", dt.TIMEDELTA, _DURATION_SCALE[duration], False
     if kind == "STRING" or (kind is None and ct == "UTF8"):
         if phys != "BYTE_ARRAY":
             raise Unsupported(f"string stored as {phys}")
@@ -668,7 +676,8 @@ def _plan_chunk(md, rg: int, name: str) -> _ColPlan:
         if enc in ("DELTA_BINARY_PACKED", "DELTA_LENGTH_BYTE_ARRAY",
                    "DELTA_BYTE_ARRAY", "BYTE_STREAM_SPLIT"):
             raise Unsupported(f"encoding {enc}")
-    out_dtype, col_dtype, scale, is_str = _logical_out(cs, phys)
+    out_dtype, col_dtype, scale, is_str = _logical_out(
+        cs, phys, md.durations.get(name))
     _codec(col.compression)  # raises Unsupported for unavailable codecs
     dpo = col.dictionary_page_offset
     start = col.data_page_offset

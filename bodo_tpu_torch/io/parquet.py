@@ -18,11 +18,12 @@ compressed file.
 
 from __future__ import annotations
 
+import base64
 import glob
 import os
 import struct
-from dataclasses import dataclass
-from typing import List, Optional, Sequence, Tuple
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence, Tuple
 
 from bodo_tpu_torch.config import config, resolve_device
 from bodo_tpu_torch.io import device_decode as DD
@@ -156,10 +157,13 @@ class RowGroup:
 @dataclass(frozen=True)
 class FileMetaData:
     """The parts of a parquet footer the readers use, under pyarrow's
-    attribute names."""
+    attribute names; `durations` maps each top-level column that the
+    file's ARROW:schema declares an arrow duration to its unit ('s',
+    'ms', 'us' or 'ns')."""
     num_rows: int
     schema: Schema
     row_groups: Tuple[RowGroup, ...]
+    durations: Dict[str, str] = field(default_factory=dict)
 
     @property
     def num_columns(self) -> int:
@@ -269,6 +273,67 @@ def _row_group(rg: dict, schema: Schema) -> RowGroup:
                     columns=tuple(cols))
 
 
+# ---------------------------------------------------------------------------
+# the ARROW:schema key-value entry: base64 of an Arrow IPC Schema message
+# (a flatbuffer: Message -> Schema -> [Field {name, type_type, type}]),
+# read by hand so that the footer needs no pyarrow
+# ---------------------------------------------------------------------------
+
+_ARROW_DURATION = 18   # Type union member Duration (Schema.fbs)
+_ARROW_SCHEMA_MSG = 1  # MessageHeader union member Schema (Message.fbs)
+_DURATION_UNITS = ("s", "ms", "us", "ns")  # TimeUnit SECOND..NANOSECOND
+
+
+def _fb_field(buf: bytes, table: int, i: int) -> Optional[int]:
+    """Position of field `i` of the flatbuffer table at `table`, or None
+    when the table leaves it at its default."""
+    (vt_back,) = struct.unpack_from("<i", buf, table)
+    vt = table - vt_back
+    (vt_len,) = struct.unpack_from("<H", buf, vt)
+    if 4 + 2 * i >= vt_len:
+        return None
+    (off,) = struct.unpack_from("<H", buf, vt + 4 + 2 * i)
+    return table + off if off else None
+
+
+def _fb_ref(buf: bytes, pos: int) -> int:
+    """The table, string or vector an offset field at `pos` points to."""
+    return pos + struct.unpack_from("<I", buf, pos)[0]
+
+
+def _fb_scalar(buf: bytes, table: int, i: int, fmt: str, default):
+    pos = _fb_field(buf, table, i)
+    return default if pos is None else struct.unpack_from(fmt, buf, pos)[0]
+
+
+def _arrow_durations(encoded: bytes) -> Dict[str, str]:
+    """{top-level field name: unit} of the duration fields of a base64
+    ARROW:schema value."""
+    raw = base64.b64decode(encoded)
+    start = 8 if raw[:4] == b"\xff\xff\xff\xff" else 4  # continuation
+    buf = raw[start:]
+    msg = _fb_ref(buf, 0)
+    if _fb_scalar(buf, msg, 1, "<B", 0) != _ARROW_SCHEMA_MSG:
+        raise ValueError("ARROW:schema holds no Schema message")
+    schema = _fb_ref(buf, _fb_field(buf, msg, 2))
+    fields_pos = _fb_field(buf, schema, 1)
+    if fields_pos is None:
+        return {}
+    vec = _fb_ref(buf, fields_pos)
+    (n,) = struct.unpack_from("<I", buf, vec)
+    out = {}
+    for j in range(n):
+        fld = _fb_ref(buf, vec + 4 + 4 * j)
+        if _fb_scalar(buf, fld, 2, "<B", 0) != _ARROW_DURATION:
+            continue
+        name_at = _fb_ref(buf, _fb_field(buf, fld, 0))
+        (ln,) = struct.unpack_from("<I", buf, name_at)
+        name = buf[name_at + 4:name_at + 4 + ln].decode("utf-8")
+        typ = _fb_ref(buf, _fb_field(buf, fld, 3))
+        out[name] = _DURATION_UNITS[_fb_scalar(buf, typ, 0, "<h", 1)]
+    return out
+
+
 def footer_metadata(path: str) -> FileMetaData:
     """The parquet footer of `path`, parsed from its thrift compact bytes
     (the JAX package takes it from pyarrow's FileMetaData)."""
@@ -291,9 +356,13 @@ def footer_metadata(path: str) -> FileMetaData:
         buf = f.read(n)
     md, _ = DD._read_struct(buf, 0)
     schema = _schema(md[2])
+    # key_value_metadata: KeyValue {1: key, 2: value}
+    kv = {e[1]: e.get(2) for e in md.get(5, [])}
+    arrow = kv.get(b"ARROW:schema")
     return FileMetaData(
         num_rows=md[3], schema=schema,
-        row_groups=tuple(_row_group(rg, schema) for rg in md.get(4, [])))
+        row_groups=tuple(_row_group(rg, schema) for rg in md.get(4, [])),
+        durations=_arrow_durations(arrow) if arrow else {})
 
 
 def _raw_range(path: str, start: int, size: int) -> bytes:

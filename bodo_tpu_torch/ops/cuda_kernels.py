@@ -33,7 +33,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 SOURCES = {"lut_gather": "lut_gather.cu", "hash_probe": "hash_probe.cu",
            "partition_rank": "partition_rank.cu",
            "range_partition": "range_partition.cu",
-           "hybrid_expand": "hybrid_expand.cu"}
+           "hybrid_expand": "hybrid_expand.cu",
+           "groupby_sum": "groupby_sum.cu"}
 _P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 # kernel name -> (C entry point, ctypes argument types); pointers and the
 # stream are c_void_p so ctypes passes them at full width
@@ -53,6 +54,9 @@ _ENTRIES = {
     # data, nb, starts, is_rle, vals, bits, n_runs, bw, out, n, stream
     "hybrid_expand": ("hybrid_expand_launch",
                       [_P, _I64, _P, _P, _P, _P, _I, _I, _P, _I64, _P]),
+    # codes, n, k, values pointers, mask pointers, c, out, stream
+    "groupby_sum": ("groupby_sum_launch",
+                    [_P, _I64, _I, _P, _P, _I, _P, _P]),
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -64,8 +68,9 @@ launches: Dict[str, int] = {name: 0 for name in (*SOURCES, "dict_gather")}
 # nvcc's output (register and shared-memory use) per kernel built here
 build_logs: Dict[str, str] = {}
 
+_libs: Dict[str, ctypes.CDLL] = {}  # name -> loaded library
 _entry_fns: Dict[str, object] = {}  # name -> loaded ctypes function
-_lock = threading.Lock()
+_lock = threading.RLock()  # _entry holds it while _lib takes it again
 
 
 def reset_launches() -> None:
@@ -122,13 +127,22 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
     return {name: library_path(name) for name in names}
 
 
+def _lib(name: str) -> ctypes.CDLL:
+    """The library of kernel `name`, built and loaded on first use."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            lib = _libs[name] = ctypes.CDLL(str(build([name])[name]))
+        return lib
+
+
 def _entry(name: str):
     """The C entry point of kernel `name`, built and loaded on first use."""
     with _lock:
         fn = _entry_fns.get(name)
         if fn is None:
             symbol, argtypes = _ENTRIES[name]
-            fn = getattr(ctypes.CDLL(str(build([name])[name])), symbol)
+            fn = getattr(_lib(name), symbol)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
             _entry_fns[name] = fn
@@ -490,3 +504,97 @@ def hybrid_expand(data: torch.Tensor, starts: torch.Tensor,
                 starts.data_ptr(), is_rle.data_ptr(), vals.data_ptr(),
                 bits.data_ptr(), n_runs, bw, out.data_ptr(), n_bucket)
     return out
+
+
+# ---------------------------------------------------------------------------
+# groupby_sum: replaces pallas_kernels.py:92 matmul_groupby_sum
+# (route dense_accumulate, :257, reached from the dense groupby's tail and
+# the hashed groupby's _hashed_agg)
+# ---------------------------------------------------------------------------
+
+# the slot limit of the reference's accumulate (pallas_kernels.py:28
+# MAX_MATMUL_SLOTS): its callers' gates, which the port keeps so that both
+# packages take the same route; the kernel's private histogram of 4096
+# slots is 16 KB a column of shared memory
+MAX_MATMUL_SLOTS = 4096
+
+
+def groupby_sum_plain(codes: torch.Tensor, cols, masks,
+                      n_slots: int) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: for each column an f32
+    index_add_ of its masked values (1.0 for a column given as None),
+    rows whose code is outside [0, n_slots) dropped."""
+    k = n_slots
+    idx = torch.where((codes >= 0) & (codes < k), codes.long(), k)
+    out = torch.zeros(k, len(masks), dtype=torch.float32,
+                      device=codes.device)
+    for c, (v, m) in enumerate(zip(cols, masks)):
+        x = m.to(torch.float32) if v is None else \
+            torch.where(m, v.to(torch.float32), 0.0)
+        acc = torch.zeros(k + 1, dtype=torch.float32, device=codes.device)
+        out[:, c] = acc.index_add_(0, idx, x)[:k]
+    return out
+
+
+def groupby_sum(codes: torch.Tensor, cols, masks,
+                n_slots: int) -> torch.Tensor:
+    """Per-slot f32 sums: int32 codes [N], for each of C columns an f32
+    values tensor [N] (None: a column of ones, i.e. a count) and a bool
+    mask [N], K = n_slots <= 4096 -> f32 [K, C], out[k, c] the sum of
+    column c over the rows with code k and mask c set. Codes outside
+    [0, K) add nothing. CPU tensors take the plain version; CUDA tensors
+    launch the kernel (csrc/groupby_sum.cu) or raise."""
+    cols, masks = list(cols), list(masks)
+    given = [codes, *masks, *(v for v in cols if v is not None)]
+    if all(t.device.type == "cpu" for t in given):
+        return groupby_sum_plain(codes, cols, masks, n_slots)
+    dev = _on_one_cuda_device("groupby_sum", given)
+    _check("groupby_sum codes", codes, torch.int32, 1)
+    n, k, c = codes.shape[0], n_slots, len(masks)
+    if len(cols) != c or c < 1:
+        raise ValueError(f"groupby_sum: {len(cols)} value columns and {c} "
+                         f"masks")
+    for v, m in zip(cols, masks):
+        _check("groupby_sum mask", m, torch.bool, 1)
+        if v is not None:
+            _check("groupby_sum values", v, torch.float32, 1)
+        if m.shape[0] != n or (v is not None and v.shape[0] != n):
+            raise ValueError("groupby_sum: codes, values and masks differ "
+                             "in length")
+    if not 1 <= k <= MAX_MATMUL_SLOTS:
+        raise ValueError(f"groupby_sum: {k} slots (the kernel takes 1 to "
+                         f"{MAX_MATMUL_SLOTS})")
+    out = torch.zeros(k, c, dtype=torch.float32, device=dev)
+    if n:
+        vals = (_P * c)(*(None if v is None else v.data_ptr() for v in cols))
+        oks = (_P * c)(*(m.data_ptr() for m in masks))
+        _launch("groupby_sum", dev, codes.data_ptr(), n, k, vals, oks, c,
+                out.data_ptr())
+    return out
+
+
+def groupby_sum_tile_cols(n_slots: int, n_cols: int) -> int:
+    """Columns a launch of the groupby_sum kernel takes at `n_slots` slots
+    on the current CUDA device (the host entry launches the kernel once
+    per tile of that many columns), as its launcher computes it."""
+    fn = _lib("groupby_sum").groupby_sum_tile_cols
+    fn.argtypes = [_I, _I]
+    fn.restype = ctypes.c_int
+    width = fn(n_slots, n_cols)
+    if width < 1:
+        raise RuntimeError(f"groupby_sum_tile_cols: cudaError {-width}")
+    return width
+
+
+def dense_accumulate(codes: torch.Tensor, cols, ok_masks,
+                     n_slots: int):
+    """Sum each (column, mask) pair into `n_slots` dense slots by code
+    (the reference's route of the same name, pallas_kernels.py:257): one
+    groupby_sum over all columns. A column is cast to f32 (None: ones,
+    a count). Returns a list of f32 [n_slots] tensors aligned with
+    `cols`."""
+    cols = [None if v is None else v.to(torch.float32).contiguous()
+            for v in cols]
+    sums = groupby_sum(codes.to(torch.int32).contiguous(), cols,
+                       [m.contiguous() for m in ok_masks], n_slots)
+    return [sums[:, i] for i in range(len(cols))]

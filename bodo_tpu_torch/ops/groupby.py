@@ -4,7 +4,9 @@ Counterpart of bodo_tpu/ops/groupby.py for the routes of the one-GPU
 relational path: segment reductions (`_segment_agg`) for size, count,
 sum and mean; the scatter-claim hash groupby (`groupby_local_hashed`,
 and `groupby_local_hashed_static` for the partial stage of the two-phase
-sharded groupby); and the sort-based `groupby_local` that the JAX
+sharded groupby), whose f32 sums, counts and means over at most 4096
+groups take the `groupby_sum` kernel (`cuda_kernels.dense_accumulate`);
+and the sort-based `groupby_local` that the JAX
 package itself takes when the hash route does not resolve. Other
 aggregations raise NotImplementedError until a later slice ports them.
 """
@@ -16,6 +18,7 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+from bodo_tpu_torch.ops import cuda_kernels as CK
 from bodo_tpu_torch.ops import hashtable as HT
 from bodo_tpu_torch.ops import kernels as K
 from bodo_tpu_torch.ops import sort_encoding as SE
@@ -102,6 +105,18 @@ def _segment_agg(op: str, v, valid, seg, padmask, out_cap: int):
     return torch.where(cnt > 0, m, float("nan")).to(rdt), None
 
 
+def _accumulated(op: str, sums, cnt_idx: int, s_idx):
+    """One aggregation's (data, valid) from dense_accumulate's f32 sums:
+    column cnt_idx counts its rows, column s_idx sums its values."""
+    if op in ("count", "size"):
+        return sums[cnt_idx].to(torch.int64), None
+    if op == "sum":
+        return sums[s_idx], None
+    cnt = sums[cnt_idx]
+    m = sums[s_idx] / cnt.clamp(min=1.0)
+    return torch.where(cnt > 0, m, float("nan")), None
+
+
 def _np_dtype(t: torch.Tensor) -> np.dtype:
     return np.dtype(str(t.dtype).replace("torch.", ""))
 
@@ -181,9 +196,10 @@ def _hashed_claim(key_arrays, count: int):
 
 def _hashed_agg(arrays, seg, group_row, ok, specs: Tuple[str, ...],
                 num_keys: int, ng_cap: int):
-    """Aggregate into the ng_cap-sized group space (hash order) by
-    segment reductions. The JAX package's one-hot matmul route for small
-    f32 group spaces is a TPU route the port has not taken on."""
+    """Aggregate into the ng_cap-sized group space (hash order): f32
+    sums, counts and means through one `dense_accumulate` when the group
+    space is small (the reference's branch, ops/groupby.py:580-624, gate
+    for gate), else segment reductions."""
     keys = arrays[:num_keys]
     values = arrays[num_keys:]
     cap = keys[0][0].shape[0]
@@ -191,8 +207,40 @@ def _hashed_agg(arrays, seg, group_row, ok, specs: Tuple[str, ...],
     grs = group_row.clamp(0, cap - 1).to(torch.int64)
     gvalid = (group_row >= 0)[:ng_cap]
     gkeys = tuple(data[grs][:ng_cap] for data, _ in keys)
-    gvals = tuple(_segment_agg(op, data, valid, seg, ok, ng_cap)
-                  for (data, valid), op in zip(values, specs))
+    accumulate = (ng_cap <= CK.MAX_MATMUL_SLOTS and cap <= (1 << 24)
+                  and all(op in ("sum", "count", "size", "mean")
+                          for op in specs)
+                  and all(op in ("count", "size") or
+                          (d.is_floating_point() and d.element_size() <= 4)
+                          for (d, _), op in zip(values, specs)))
+    if not accumulate:
+        gvals = tuple(_segment_agg(op, data, valid, seg, ok, ng_cap)
+                      for (data, valid), op in zip(values, specs))
+        return gkeys, gvals, gvalid
+    live = seg < ng_cap
+    ok = ok & live
+    cols, oks, plan, voks = [], [], [], {}
+    for (d, v), op in zip(values, specs):
+        cnt_idx = len(cols)
+        cols.append(None)  # ones: the count
+        if op == "size":
+            oks.append(ok)
+            plan.append((op, cnt_idx, None))
+            continue
+        # one mask per value column, however many aggregations read it
+        vok = voks.get(id(d))
+        if vok is None:
+            vok = voks[id(d)] = K.value_ok(d, v, ok)
+        oks.append(vok)
+        s_idx = None
+        if op in ("sum", "mean"):
+            s_idx = len(cols)
+            cols.append(d)
+            oks.append(vok)
+        plan.append((op, cnt_idx, s_idx))
+    sums = CK.dense_accumulate(torch.where(live, seg, 0), cols, oks, ng_cap)
+    gvals = tuple(_accumulated(op, sums, cnt_idx, s_idx)
+                  for op, cnt_idx, s_idx in plan)
     return gkeys, gvals, gvalid
 
 

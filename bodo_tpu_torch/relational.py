@@ -37,9 +37,10 @@ from bodo_tpu_torch.config import config
 from bodo_tpu_torch.ops import cuda_kernels as CK
 from bodo_tpu_torch.ops import hashtable as HT
 from bodo_tpu_torch.ops import kernels as K
-from bodo_tpu_torch.ops.groupby import (DECOMPOSE, HASH_OPS, _segment_agg,
-                                        agg_dtype, groupby_local,
-                                        groupby_local_hashed, segment_sum)
+from bodo_tpu_torch.ops.groupby import (DECOMPOSE, HASH_OPS, _accumulated,
+                                        _segment_agg, agg_dtype,
+                                        groupby_local, groupby_local_hashed,
+                                        segment_sum)
 from bodo_tpu_torch.ops.hashing import dest_shard, hash_columns
 from bodo_tpu_torch.ops.join import join_count, join_local
 from bodo_tpu_torch.ops.sort import sort_local, sort_sharded
@@ -530,18 +531,49 @@ def _dense_slots(key_arrays, los, sizes, mask, strict_range: bool = False):
     return slot, mask
 
 
-def dense_agg_tail(tree, live, kn, vn, specs, sizes, los, n_slots: int):
+def dense_agg_tail(tree, live, kn, vn, specs, sizes, los, n_slots: int,
+                   accumulate: bool):
     """Scatter `live` rows into mixed-radix dense slots, reduce every
-    aggregation with segment sums, decode slot indices back into key
-    columns and compact the present slots ascending (slot order ==
-    lexicographic key order). Returns (out_keys, out_vals, n_groups).
+    aggregation, decode slot indices back into key columns and compact
+    the present slots ascending (slot order == lexicographic key order).
+    Returns (out_keys, out_vals, n_groups).
 
-    The JAX package's one-hot matmul route (f32, at most 4096 slots) is a
-    TPU route the port has not taken on."""
+    accumulate=True (the gate `dense_accumulate_ok` passed) reduces every
+    aggregation in one f32 `dense_accumulate` over the reference's column
+    plan (relational.py:962-995): the present column first, then for each
+    count, sum or mean a ones column (its count), followed for a sum or
+    mean by its value column; otherwise each aggregation is its own
+    segment sum."""
     slot, padmask = _dense_slots([tree[n] for n in kn], los, sizes, live)
-    present = segment_sum(padmask.to(torch.int32), slot, n_slots) > 0
-    outs = [_segment_agg(op, tree[c][0], tree[c][1], slot, padmask, n_slots)
-            for c, op in zip(vn, specs)]
+    if accumulate:
+        cols, oks, plan, voks = [None], [padmask], [], {}
+        for c, op in zip(vn, specs):
+            if op == "size":
+                plan.append(("size", 0, None))  # == the present column
+                continue
+            d, v = tree[c]
+            # one mask per value column, however many aggregations read it
+            ok = voks.get(c)
+            if ok is None:
+                ok = voks[c] = K.value_ok(d, v, padmask)
+            cnt_idx = len(cols)
+            cols.append(None)
+            oks.append(ok)
+            s_idx = None
+            if op in ("sum", "mean"):
+                s_idx = len(cols)
+                cols.append(d)
+                oks.append(ok)
+            plan.append((op, cnt_idx, s_idx))
+        sums = CK.dense_accumulate(slot, cols, oks, n_slots)
+        present = sums[0] > 0
+        outs = [_accumulated(op, sums, cnt_idx, s_idx)
+                for op, cnt_idx, s_idx in plan]
+    else:
+        present = segment_sum(padmask.to(torch.int32), slot, n_slots) > 0
+        outs = [_segment_agg(op, tree[c][0], tree[c][1], slot, padmask,
+                             n_slots)
+                for c, op in zip(vn, specs)]
     rem = torch.arange(n_slots, dtype=torch.int32, device=slot.device)
     key_cols = [None] * len(kn)
     for i in range(len(kn) - 1, -1, -1):
@@ -557,6 +589,19 @@ def dense_agg_tail(tree, live, kn, vn, specs, sizes, los, n_slots: int):
     return tuple(packed[:nk]), out_vals, n_groups
 
 
+def dense_accumulate_ok(capacity: int, val_dtypes, specs) -> bool:
+    """The dense groupby's gate of the f32 accumulate (the reference's
+    `dense_mxu_ok`, relational.py:1018-1030): sums and means only over
+    float columns of 4 bytes or fewer (integer sums stay exact in int64),
+    and only while the row capacity keeps counts within f32's exact
+    integers (2^24; `present` is a count too)."""
+    return (capacity <= (1 << 24)
+            and all(op in ("sum", "count", "size", "mean") for op in specs)
+            and all(op in ("count", "size")
+                    or (d.is_floating_point and d.itemsize <= 4)
+                    for d, op in zip(val_dtypes, specs)))
+
+
 def _groupby_agg_dense(t: Table, keys, aggs, ranges) -> Table:
     """Sort-free dense groupby for small key spaces: when the exact
     product K of the key ranges fits the slot budget, rows scatter into K
@@ -569,10 +614,14 @@ def _groupby_agg_dense(t: Table, keys, aggs, ranges) -> Table:
         n_slots *= s
     specs = tuple(op for _, op, _ in aggs)
     val_names = [c for c, _, _ in aggs]
+    # the f32 accumulate (relational.py:1056-1060): the reference takes
+    # it on the TPU or in interpret mode, the port always
+    accumulate = (n_slots <= CK.MAX_MATMUL_SLOTS and dense_accumulate_ok(
+        t.capacity, [t.column(c).data.dtype for c in val_names], specs))
     live = K.row_mask(t.nrows, t.capacity, t.device)
     out_keys, out_vals, ng = dense_agg_tail(_tree(t), live, list(keys),
                                             val_names, specs, sizes, los,
-                                            n_slots)
+                                            n_slots, accumulate)
     cols: Dict[str, Column] = {}
     for kname, kd in zip(keys, out_keys):
         cols[kname] = _key_out(t.column(kname), kd)

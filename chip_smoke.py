@@ -17,8 +17,13 @@ per source, all started together), then:
      shard's splitters; hybrid_expand on RLE-only, bit-packed-only and
      mixed streams of 1, 100 and 20,000 values at bit widths 0, 1, 2, 8,
      17 and 24 with run tables of 40 and 4,096 runs, over the whole
-     padded output; and times lut_gather, its plain version and the
-     PyTorch call that computes the same function;
+     padded output; groupby_sum at N in {0, 1, 1000, 2^24} rows, K in
+     {1, 64, 4096} slots and C in {1, 4, 16} columns (K = 4096, C = 16 in
+     two column tiles) with masked rows and codes outside [0, K), the
+     kernel and its plain version each against the float64 sums (counts
+     exact, sums within 1e-5 * sum(|x|) per slot); and times
+     lut_gather, its plain version and the PyTorch call that computes
+     the same function;
   2. drives the main paths, each with the route and launch counts set to
      0 just before it and read just after:
      - the NYC-taxi relational pipeline at 20,000,000 trip rows (about
@@ -57,6 +62,19 @@ per source, all started together), then:
      - the star join with shard=True on 4 shards, on the REP phase's
        tables: the shuffle join (partition_rank on the 20M-row fact
        table's shards), against the numpy oracle;
+     - the f32 groupby at 2^24 = 16,777,216 rows (workloads/f32_groupby:
+       bench.py's dense-accumulate probe and test_hashtable's hashed
+       frame, scaled): the dense query (filter, x + x, the dense groupby
+       of 64 slots) and the sparse query (the hashed groupby of 300
+       int64 keys), each through groupby_sum, against the float64 numpy
+       oracle (keys and counts exact, sums within 1e-5 * sum(|x|) per
+       group, means within it over the count), cold and warm, with a
+       traced dense run; groupby_sum is then held against its plain
+       version and the float64 sums and timed on the dense run's inputs,
+       beside one index_add_ of the same sums;
+     every float64 path above (the taxi paths, the taxi read's
+     pipeline, the star paths, the join matrix) must launch groupby_sum
+     zero times: the reference's gates refuse f64 sums and means;
   3. runs the taxi pipeline at 20,000 rows, which takes the packed/hashed
      groupby route, against the oracle.
 
@@ -89,6 +107,10 @@ HBM_BYTES_PER_S = 3.35e12
 SPIN_CYCLES = 100_000_000
 # the taxi trips file: pyarrow's default layout, as gen_taxi_data writes it
 READ_ROW_GROUPS = 20       # 1,048,576-row row groups of 20M rows
+# the f32 groupby: the largest capacity whose counts the f32 accumulate's
+# gate admits (2^24, a multiple of the capacity rounding)
+F32_ROWS = 1 << 24
+SUM_TOL_TEXT = "1e-5 * sum(|x|) per slot"
 
 
 def device_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -580,6 +602,250 @@ def check_hybrid_expand(dev):
               f"n_bucket compared, the values equal to the stream's")
 
 
+def _groupby_sum_case(g, dev, n: int, k: int, c: int):
+    """codes in [0, K) with 3% outside (-1 or K), C columns (every third
+    a count: values None) at several scales, masks with 20% unset."""
+    import torch
+    codes = torch.randint(0, k, (n,), generator=g, device=dev,
+                          dtype=torch.int32)
+    bad = torch.rand(n, generator=g, device=dev) < 0.03
+    low = torch.rand(n, generator=g, device=dev) < 0.5
+    codes = torch.where(bad, torch.where(low, -1, k), codes).to(torch.int32)
+    cols = [None if j % 3 == 0 else
+            torch.randn(n, generator=g, device=dev) * 10.0 ** (j % 5 - 2)
+            for j in range(c)]
+    masks = [torch.rand(n, generator=g, device=dev) < 0.8 for _ in range(c)]
+    return codes, cols, masks
+
+
+def groupby_sums64(codes, cols, masks, k: int):
+    """float64 sums [K, C] of what groupby_sum adds, and each slot's sum of
+    |x| (the tolerance's scale)."""
+    import torch
+    idx = torch.where((codes >= 0) & (codes < k), codes.long(), k)
+    sums, absums = [], []
+    for v, m in zip(cols, masks):
+        x = m.double() if v is None else torch.where(m, v.double(), 0.0)
+        z = torch.zeros(k + 1, dtype=torch.float64, device=codes.device)
+        sums.append(z.index_add(0, idx, x)[:k])
+        absums.append(z.index_add(0, idx, x.abs())[:k])
+    return torch.stack(sums, 1), torch.stack(absums, 1)
+
+
+def hold_groupby_sum(got, s64, a64, cols, label: str) -> float:
+    """Counts (columns given None) exactly equal to the float64 count,
+    every sum within SUM_TOL * sum(|x|) of the float64 sum. Returns the
+    largest |got - s64| / (SUM_TOL * sum(|x|))."""
+    import torch
+    from bodo_tpu_torch.workloads.f32_groupby import SUM_TOL
+    err = (got.double() - s64).abs()
+    bound = SUM_TOL * a64
+    over = err > bound
+    counts = [j for j, v in enumerate(cols) if v is None]
+    exact = bool(torch.equal(got[:, counts].double(), s64[:, counts]))
+    if bool(over.any()) or not exact:
+        raise AssertionError(f"groupby_sum {label}: counts exact={exact}, "
+                             f"{int(over.sum())} sums past the bound, max "
+                             f"|err| {float(err.max())}")
+    ratio = err / torch.where(bound > 0, bound, 1.0)
+    return float(ratio.max()) if ratio.numel() else 0.0
+
+
+def check_groupby_sum(dev):
+    """Phase 1 for groupby_sum: at N in {0, 1, 1000, 2^24} rows, K in {1,
+    64, 4096} slots and C in {1, 4, 16} columns, with masked rows and
+    codes outside [0, K), the kernel and its plain version each against
+    the float64 sums (counts exact, sums within SUM_TOL * sum(|x|) per
+    slot); K = 4096 with C = 16 takes more than one column tile."""
+    import torch
+    from bodo_tpu_torch.ops import cuda_kernels as CK
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    for n in (0, 1, 1000, F32_ROWS):
+        for k in (1, 64, CK.MAX_MATMUL_SLOTS):
+            for c in (1, 4, 16):
+                codes, cols, masks = _groupby_sum_case(g, dev, n, k, c)
+                got = CK.groupby_sum(codes, cols, masks, k)
+                plain = CK.groupby_sum_plain(codes, cols, masks, k)
+                s64, a64 = groupby_sums64(codes, cols, masks, k)
+                torch.cuda.synchronize()
+                label = f"N={n} K={k} C={c}"
+                worst = hold_groupby_sum(got, s64, a64, cols, label)
+                worst_plain = hold_groupby_sum(plain, s64, a64, cols,
+                                               "plain " + label)
+                width = CK.groupby_sum_tile_cols(k, c)
+                tiles = -(-c // width)
+                diff = float((got - plain).abs().max()) if n else 0.0
+                print(f"groupby_sum {label}: column_tiles={tiles} "
+                      f"(width {width}) counts_exact=True; |err| / "
+                      f"({SUM_TOL_TEXT}) max kernel {worst:.6f}, plain "
+                      f"{worst_plain:.6f}; max |kernel - plain| {diff}")
+                if (k, c) == (CK.MAX_MATMUL_SLOTS, 16) and tiles < 2:
+                    raise AssertionError("groupby_sum: K=4096 C=16 took "
+                                         "one column tile")
+                del codes, cols, masks, got, plain, s64, a64
+
+
+def groupby_sum_bytes(codes, cols, masks, k: int) -> int:
+    """The bytes groupby_sum must move: the codes, each distinct value
+    column and each distinct mask read once, the [K, C] sums written
+    once."""
+    n = codes.shape[0]
+    vals = {v.data_ptr() for v in cols if v is not None}
+    oks = {m.data_ptr() for m in masks}
+    return 4 * n + 4 * n * len(vals) + n * len(oks) + 4 * k * len(masks)
+
+
+def time_groupby_sum(args):
+    """Hold groupby_sum against its plain version and the float64 sums on
+    the inputs the f32 dense path gave it, and time both there, with one
+    index_add_ of the same [K, C] sums (values stacked and masked
+    beforehand) as the library call."""
+    import torch
+    from bodo_tpu_torch.ops import cuda_kernels as CK
+    codes, cols, masks, k = args
+    got = CK.groupby_sum(*args)
+    plain = CK.groupby_sum_plain(*args)
+    s64, a64 = groupby_sums64(codes, cols, masks, k)
+    torch.cuda.synchronize()
+    worst = hold_groupby_sum(got, s64, a64, cols, "(f32 dense path's call)")
+    hold_groupby_sum(plain, s64, a64, cols, "plain (f32 dense path's call)")
+    err = float((got - plain).abs().max())
+    n, c = codes.shape[0], len(masks)
+    print(f"groupby_sum (f32 dense path's call) N={n} K={k} C={c} "
+          f"value_columns={sum(v is not None for v in cols)} "
+          f"live_rows={int(masks[0].sum())}: counts exact, sums within "
+          f"{SUM_TOL_TEXT} (max ratio {worst:.6f}); max |kernel - plain| "
+          f"{err}")
+    stacked = torch.stack([m.float() if v is None else torch.where(m, v, 0.0)
+                           for v, m in zip(cols, masks)], 1)
+    idx = codes.long()
+    if not bool(((idx >= 0) & (idx < k)).all()):
+        raise AssertionError("groupby_sum: the dense path's codes leave "
+                             "[0, K)")
+    kernel_ms = device_ms(lambda: CK.groupby_sum(*args))
+    plain_ms = device_ms(lambda: CK.groupby_sum_plain(*args))
+    library_ms = device_ms(lambda: torch.zeros(
+        k, c, device=codes.device).index_add_(0, idx, stacked))
+    kernel_ms_again = device_ms(lambda: CK.groupby_sum(*args))
+    # where the kernel's time goes: the same rows with every mask unset
+    # (code and mask loads only: no value loads, no atomics), and with
+    # the codes spread over 4096 slots (the same atomics on 64 times as
+    # many addresses)
+    off = [torch.zeros_like(m) for m in masks]
+    loads_ms = device_ms(lambda: CK.groupby_sum(codes, cols, off, k))
+    wide = CK.MAX_MATMUL_SLOTS
+    spread = codes * (wide // k) + torch.randint(
+        0, wide // k, codes.shape, device=codes.device, dtype=torch.int32)
+    spread_ms = device_ms(lambda: CK.groupby_sum(spread, cols, masks, wide))
+    print(f"groupby_sum where the time goes N={n}: masks all unset (code "
+          f"and mask loads only) {loads_ms:.6f} ms; codes spread over "
+          f"K={wide} slots {spread_ms:.6f} ms")
+    del off, spread
+    nbytes = groupby_sum_bytes(codes, cols, masks, k)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    stacked_bytes = 4 * n + 4 * n * c + 4 * k * c
+    print(f"groupby_sum timing N={n} K={k} C={c}: kernel_ms={kernel_ms:.6f} "
+          f"(again {kernel_ms_again:.6f}) plain_ms={plain_ms:.6f} "
+          f"library_ms(index_add_ of the stacked [N, C] values)="
+          f"{library_ms:.6f} bound_ms={bound_ms:.6f} ({nbytes} bytes at "
+          f"{HBM_BYTES_PER_S / 1e12} TB/s: codes, distinct value columns "
+          f"and masks, sums; a stacked [N, C] interface would move "
+          f"{stacked_bytes} bytes, "
+          f"{stacked_bytes / HBM_BYTES_PER_S * 1e3:.6f} ms)")
+    return {"name": "groupby_sum", "route": "cuda",
+            "source": "bodo_tpu_torch/csrc/groupby_sum.cu",
+            "replaces": "bodo_tpu/ops/pallas_kernels.py:92",
+            "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes",
+            "library_ms": library_ms}
+
+
+def no_f32_accumulate(launches, label: str) -> None:
+    """The float64 paths: the reference's gates refuse f64 sums and means
+    (and slot spaces over 4096), so groupby_sum must not run."""
+    if launches["groupby_sum"] != 0:
+        raise AssertionError(f"{label}: groupby_sum launched "
+                             f"{launches['groupby_sum']} times on a float64 "
+                             f"path")
+
+
+def run_f32_groupby():
+    """The f32 groupby at F32_ROWS rows: the dense query (filter, x + x,
+    the dense groupby of 64 slots) and the sparse query (the hashed
+    groupby of 300 int64 keys), each with the counts reset just before
+    and read just after, cold and warm, against the float64 numpy oracle
+    (keys and counts exact, sums per SUM_TOL); a traced dense run.
+    Returns (the launches of the dense and the sparse run, the arguments
+    of the groupby_sum call of a later dense run)."""
+    import numpy as np
+    import torch
+    from bodo_tpu_torch import relational as R
+    from bodo_tpu_torch.ops import cuda_kernels as CK
+    from bodo_tpu_torch.table.table import Table
+    from bodo_tpu_torch.workloads import f32_groupby as F
+    from bodo_tpu_torch.workloads import profiling
+
+    t0 = time.perf_counter()
+    dense_np, sparse_np = F.gen_f32_arrays(F32_ROWS, seed=SEED)
+    dense = Table.from_numpy(dense_np)
+    sparse = Table.from_numpy(sparse_np)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    phases = (("f32 dense", dense, dense_np, F.pipeline_dense, F.numpy_dense,
+               "groupby_dense"),
+              ("f32 sparse", sparse, sparse_np, F.pipeline_sparse,
+               F.numpy_sparse, "groupby_hashed"))
+    launches = {}
+    for label, table, arrays, pipeline, numpy_fn, route in phases:
+        torch.cuda.reset_peak_memory_stats()
+        R.reset_route_counts()
+        CK.reset_launches()
+        t0 = time.perf_counter()
+        out = pipeline(table)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        routes = {k: v for k, v in R.route_counts.items() if v}
+        launches[label] = dict(CK.launches)
+        peak = torch.cuda.max_memory_allocated()
+        t0 = time.perf_counter()
+        pipeline(table)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = numpy_fn(arrays)
+        oracle_s = time.perf_counter() - t0
+        worst = F.check_against(out.to_numpy(), want)
+        print(f"{label}: rows={table.nrows} capacity={table.capacity} "
+              f"groups={out.nrows} setup_s={setup_s:.3f} "
+              f"pipeline_s={wall_s:.4f} pipeline_warm_s={warm_s:.4f} "
+              f"max_memory_allocated={peak} numpy_oracle_s={oracle_s:.3f}")
+        print(f"{label}: route_counts={routes} "
+              f"kernel_launches={launches[label]}")
+        print(f"{label}: matches the float64 numpy oracle (keys and counts "
+              f"exact, sums within {SUM_TOL_TEXT}, means within it over "
+              f"the count; max ratio {worst:.6f})")
+        if routes.get(route, 0) != 1 or launches[label]["groupby_sum"] < 1:
+            raise AssertionError(f"{label}: route {route} or groupby_sum not "
+                                 f"taken: {routes} {launches[label]}")
+        if out.nrows != len(np.unique(arrays["k"])):
+            raise AssertionError(f"{label}: {out.nrows} groups")
+        del out
+    tr = profiling.trace(lambda: F.pipeline_dense(dense))
+    print(f"f32 dense (traced): traced_wall_s={tr['traced_wall_s']:.4f} "
+          f"device_ms={tr['device_ms']:.3f} "
+          f"device_busy_share={tr['device_busy_share']:.4f}")
+    for r in tr["top_ops_device_ms"][:8]:
+        print(f"f32 dense (traced): operator {r['ms']:.3f} ms x{r['calls']} "
+              f"{r['op'][:100]}")
+    for r in tr["top_kernels_ms"][:8]:
+        print(f"f32 dense (traced): device {r['ms']:.3f} ms x{r['calls']} "
+              f"{r['kernel'][:100]}")
+    with _Capture("groupby_sum") as acc:
+        F.pipeline_dense(dense)
+    return launches["f32 dense"], launches["f32 sparse"], acc.calls[0]
+
+
 def run_taxi_read(trips, weather, rep_got, oracle):
     """The taxi read: write the 20M-row trips file as gen_taxi_data does
     (pandas' to_parquet with pyarrow's defaults), read it through
@@ -721,6 +987,7 @@ def run_taxi_read(trips, weather, rep_got, oracle):
             file_launches["lut_gather"] < 1:
         raise AssertionError(f"taxi read -> pipeline: launches "
                              f"{file_launches}")
+    no_f32_accumulate(file_launches, "taxi read -> pipeline")
     return launches, expand.calls, page_values
 
 
@@ -851,6 +1118,7 @@ def run_star():
     if missing or launches["hash_probe"] < 1:
         raise AssertionError(f"star path: routes {missing} not taken or "
                              f"hash_probe not launched: {launches}")
+    no_f32_accumulate(launches, "star path")
 
     # one more run, keeping the inputs of its hash_probe launch
     with _Capture("hash_probe") as probe:
@@ -893,6 +1161,7 @@ def run_star_1d(fact, dim, oracle):
             or launches["hash_probe"] < 1:
         raise AssertionError(f"star path 1D: shuffle join or its kernels "
                              f"not taken: {routes} {launches}")
+    no_f32_accumulate(launches, "star path 1D")
 
 
 def _rows_matrix(cols):
@@ -977,6 +1246,7 @@ def run_join_matrix():
         if routes != {route: 1} or launches["hash_probe"] < 1:
             raise AssertionError(f"join matrix {how}: routes {routes}, "
                                  f"launches {launches}")
+        no_f32_accumulate(launches, f"join matrix {how}")
 
 
 def run_taxi(n_rows: int, want_routes, label: str):
@@ -1025,6 +1295,7 @@ def run_taxi(n_rows: int, want_routes, label: str):
     missing = [r for r in want_routes if routes.get(r, 0) < 1]
     if missing:
         raise AssertionError(f"{label}: routes {missing} not taken")
+    no_f32_accumulate(launches, label)
     return launches, (trips, weather, got, oracle)
 
 
@@ -1075,6 +1346,7 @@ def run_taxi_1d(trips, weather, rep_got, oracle):
     for k in ("hash_probe", "partition_rank", "range_partition"):
         if launches[k] < 1:
             raise AssertionError(f"main path 1D: {k} not launched")
+    no_f32_accumulate(launches, "main path 1D")
     with _Capture("partition_rank") as pr, \
             _Capture("range_partition") as rp:
         run()
@@ -1112,6 +1384,7 @@ def main() -> int:
     check_partition_rank(dev)
     check_range_partition(dev)
     check_hybrid_expand(dev)
+    check_groupby_sum(dev)
     # each main path launches its kernels: lut_gather on the taxi path,
     # hybrid_expand and lut_gather (as dict_gather) on the taxi read,
     # hash_probe on the star path, partition_rank and range_partition on
@@ -1138,7 +1411,12 @@ def main() -> int:
     del rank_args, range_args
     run_star_1d(*star_run)
     del star_run
-    kernels = [lut, probe, rank, part, expand]
+    dense_launches, sparse_launches, acc_args = run_f32_groupby()
+    acc = time_groupby_sum(acc_args)
+    acc["launches"] = dense_launches["groupby_sum"]
+    acc["hashed_launches"] = sparse_launches["groupby_sum"]
+    del acc_args
+    kernels = [lut, probe, rank, part, expand, acc]
     for k in kernels:
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']} was not launched on its "

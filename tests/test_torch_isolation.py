@@ -2,8 +2,8 @@
 neither JAX nor the JAX package (nor pandas/pyarrow, which only its
 readers and converters import when called); its entry points default to
 CUDA and raise without it instead of running on the CPU (the 1D ones too:
-make_mesh, Table.shard on the default mesh, the sharded pipelines; and
-read_parquet); the
+make_mesh, Table.shard on the default mesh, the sharded pipelines;
+read_parquet; the f32 groupby pipelines); the
 CUDA kernel wrappers never fall back to their plain versions for a
 tensor that is not on the CPU. One test runs every check (see
 tests/torch_parity.py on why each test_torch_* file holds one test)."""
@@ -34,7 +34,7 @@ print("FORBIDDEN", bad)
 import torch
 if not torch.cuda.is_available():
     from bodo_tpu_torch.workloads.taxi import pipeline
-    from bodo_tpu_torch.workloads import star_join
+    from bodo_tpu_torch.workloads import f32_groupby, star_join
     from bodo_tpu_torch.parallel.mesh import make_mesh
     from bodo_tpu_torch.table import Table
     from bodo_tpu_torch.io import read_parquet
@@ -45,6 +45,10 @@ if not torch.cuda.is_available():
                  lambda: star_join.pipeline(*star_join.gen_star_arrays(10)),
                  lambda: star_join.pipeline(*star_join.gen_star_arrays(10),
                                             shard=True),
+                 lambda: f32_groupby.pipeline_dense(
+                     f32_groupby.gen_f32_arrays(10)[0]),
+                 lambda: f32_groupby.pipeline_sparse(
+                     f32_groupby.gen_f32_arrays(10)[1]),
                  lambda: Table.from_numpy({"a": np.arange(3)}),
                  lambda: read_parquet(sys.argv[1]),
                  lambda: make_mesh(4),
@@ -164,15 +168,34 @@ def _check_decode_kernels_never_fall_back_off_the_cpu():
     assert CK.launches == before
 
 
+def _check_groupby_sum_never_falls_back_off_the_cpu():
+    import torch
+    from bodo_tpu_torch.ops import cuda_kernels as CK
+    before = dict(CK.launches)
+    codes = torch.tensor([0, 1, 1, 7], dtype=torch.int32)
+    vals = torch.tensor([1.0, 2.0, 3.0, 4.0])
+    ok = torch.ones(4, dtype=torch.bool)
+    for args in ((codes.to("meta"), [vals], [ok]),
+                 (codes, [vals.to("meta")], [ok]),
+                 (codes, [None], [ok.to("meta")])):
+        with pytest.raises(ValueError, match="CUDA"):
+            CK.groupby_sum(*args, 2)
+        with pytest.raises(ValueError, match="CUDA"):
+            CK.dense_accumulate(*args, 2)
+    out = CK.groupby_sum(codes, [vals, None], [ok, ok], 2)  # on the CPU
+    assert out.tolist() == [[1.0, 1.0], [5.0, 2.0]]
+    assert CK.launches == before
+
+
 def _check_kernel_build_is_lazy():
     """No kernel is built or loaded while the modules import: the build
     directory is keyed by source and flags, and nothing loaded it."""
     from bodo_tpu_torch.ops import cuda_kernels as CK
     assert CK._entry_fns == {} or all(
         CK.library_path(n).exists() for n in CK._entry_fns)
-    assert sorted(CK.SOURCES) == ["hash_probe", "hybrid_expand",
-                                  "lut_gather", "partition_rank",
-                                  "range_partition"]
+    assert sorted(CK.SOURCES) == ["groupby_sum", "hash_probe",
+                                  "hybrid_expand", "lut_gather",
+                                  "partition_rank", "range_partition"]
     for name in CK.SOURCES:
         path = CK.library_path(name)
         assert path.parent == REPO / "build"
@@ -186,4 +209,5 @@ def test_port_stands_alone(torch_one_thread, tmp_path):
     _check_hash_probe_never_falls_back_off_the_cpu()
     _check_partition_kernels_never_fall_back_off_the_cpu()
     _check_decode_kernels_never_fall_back_off_the_cpu()
+    _check_groupby_sum_never_falls_back_off_the_cpu()
     _check_kernel_build_is_lazy()
