@@ -36,11 +36,17 @@ The JAX package runs each page through a jitted program cached per page
 shape (its DecodeProgramCache, with compile budgets in xla_observatory
 and the fusion_stage lint), to bound the number of XLA executables.
 Eager torch compiles no program per shape, so the port has none of that
-machinery: each page runs as a sequence of torch operations. It keeps
-the JAX package's power-of-two page shapes (`_bucket`), so the kernel
-sees the same inputs in both packages. Row groups are fetched one after
-another; the JAX package's io_pool threads and fault injection belong to
-the runtime slice and change no result.
+machinery and no power-of-two page shapes. A page holds ~20,000 values,
+a few microseconds of work against a launch's own cost, so the port
+decodes a column chunk as one program (`_run_chunk_program`): one
+`hybrid_expand` launch for the definition levels of all its pages, one
+for all its dictionary-index or RLE-boolean streams, and chunk-wide
+operations for the validity, the dense non-null positions, the
+dictionary gather, the scale and dtype and the null fill. PLAIN pages
+launch no kernel and are decoded page by page into the chunk's values.
+Row groups are fetched one after another; the JAX package's io_pool
+threads and fault injection belong to the runtime slice and change no
+result.
 
 Bit-identical parity with `arrow_bridge._arrow_column` is the contract:
 float nulls become NaN with no mask, int/bool/timestamp/date nulls
@@ -447,44 +453,13 @@ def _bucket(n: int, lo: int = 16) -> int:
     return b
 
 
-def _pad_runs(rt: _RunTable, runs_bucket: int, sentinel: int) -> tuple:
-    """Pad run tables to the bucket; sentinel starts never win the
-    search over starts, so padded runs are inert."""
-    k = len(rt.starts)
-    starts = np.full(runs_bucket, sentinel, np.int32)
-    starts[:k] = rt.starts
-    is_rle = np.zeros(runs_bucket, bool)
-    is_rle[:k] = rt.is_rle
-    vals = np.zeros(runs_bucket, np.int32)
-    vals[:k] = rt.vals
-    bits = np.zeros(runs_bucket, np.int64)
-    bits[:k] = rt.bits
-    return starts, is_rle, vals, bits
-
-
-_ZERO_RUNS = 8  # run-table bucket floor
+_EMPTY_RUNS = _RunTable(np.zeros(0, np.int32), np.zeros(0, bool),
+                        np.zeros(0, np.int32), np.zeros(0, np.int64))
 
 
 # ---------------------------------------------------------------------------
-# page programs: one sequence of torch operations per page
+# chunk programs: one column chunk's pages as chunk-wide torch operations
 # ---------------------------------------------------------------------------
-
-@dataclass(frozen=True)
-class _PageSpec:
-    """Static configuration of one page decode (the JAX package's
-    program cache key): encoding kind, output dtype, page shapes."""
-    kind: str            # 'plain' | 'dict' | 'boolplain' | 'boolrle'
-    out_dtype: str       # numpy dtype name of the decoded values
-    itemsize: int        # physical width for 'plain' (0 otherwise)
-    bit_width: int       # index/value bit width for hybrid kinds
-    has_defs: bool       # definition levels expand to a validity mask
-    byte_bucket: int     # padded page-byte length
-    n_bucket: int        # padded output value count
-    def_runs: int        # padded def-level run count
-    val_runs: int        # padded value-stream run count (hybrid kinds)
-    dict_bucket: int     # padded dictionary length (numeric dict gather)
-    scale: int           # timestamp unit -> ns multiplier (1 otherwise)
-
 
 _TORCH_INT = {4: torch.int32, 8: torch.int64}
 # physical dtypes a PLAIN page's bytes reinterpret as directly
@@ -494,11 +469,11 @@ _PLAIN_VIEW = {"int32": torch.int32, "uint32": torch.uint32,
 
 
 def _assemble_plain_body(data: torch.Tensor, val_off: int, itemsize: int,
-                         out_dtype: str, n_bucket: int) -> torch.Tensor:
+                         out_dtype: str, n: int) -> torch.Tensor:
     """PLAIN fixed-width: the dense value region's little-endian bytes
     reinterpreted as the physical dtype (narrow logical ints ride in
     INT32 and convert after)."""
-    window = data[val_off:val_off + n_bucket * itemsize]
+    window = data[val_off:val_off + n * itemsize]
     if window.storage_offset() % itemsize:
         window = window.clone()  # a view needs an aligned start
     target = _PLAIN_VIEW.get(out_dtype)
@@ -507,70 +482,161 @@ def _assemble_plain_body(data: torch.Tensor, val_off: int, itemsize: int,
     return window.view(_TORCH_INT[itemsize]).to(dt.TORCH_OF[out_dtype])
 
 
-def _run_page_program(spec: _PageSpec, data: torch.Tensor, n_values: int,
-                      def_runs, val_runs, val_off: int,
-                      dictvals: Optional[torch.Tensor]):
-    """Decode one page on the device: def-level expansion, value decode,
-    null scatter, dtype conversion. `data` is the page's bytes padded to
-    spec.byte_bucket, `def_runs`/`val_runs` its padded run tables
-    (starts, is_rle, vals, bits) where the kind uses them, `dictvals` the
-    padded numeric dictionary. Returns (values [n_values], valid
-    [n_values] or None when the page has no definition levels, the
-    page's null count as a 0-d tensor or 0)."""
-    dev = data.device
-    n_bucket = spec.n_bucket
-    out_t = dt.TORCH_OF[spec.out_dtype]
-    if spec.has_defs:
-        i = torch.arange(n_bucket, device=dev)
-        in_rows = i < n_values
-        levels = CK.hybrid_expand(data, *def_runs, 1, n_bucket)
-        valid = (levels == 1) & in_rows
-        # densely-packed non-null values: row i reads packed slot
-        # cumsum(valid)-1
-        pos = (torch.cumsum(valid, 0) - 1).clamp(0, n_bucket - 1)
-    else:
-        # no definition levels: every row is valid and reads its own
-        # slot, so the mask and the gathers are identities
-        valid = pos = None
+def _plain_page_values(pg: _Page, data: torch.Tensor, itemsize: int,
+                       out_dtype: str, pos: Optional[torch.Tensor]):
+    """A PLAIN or PLAIN-boolean page's values at its rows: `data` is the
+    page's staged bytes, `pos` each row's dense non-null position in the
+    page (None when the page has no definition levels to expand)."""
+    if pg.kind == "plain":
+        dense = _assemble_plain_body(data, pg.val_off, itemsize, out_dtype,
+                                     pg.num_values)
+        return dense if pos is None else dense[pos]
+    bits_i = pg.val_off * 8 + (torch.arange(pg.num_values,
+                                            device=data.device)
+                               if pos is None else pos)
+    byte0 = (bits_i >> 3).clamp(0, data.shape[0] - 1)
+    return ((data[byte0] >> (bits_i & 7).to(torch.uint8)) & 1) > 0
+
+
+def _scaled(values: torch.Tensor, scale: int, out_t: torch.dtype):
+    """Timestamp ticks to ns, then the table dtype."""
+    return (values * scale if scale != 1 else values).to(out_t)
+
+
+@dataclass
+class _ChunkStage:
+    """Host side of one chunk decode: everything staged for the one copy
+    to the device, by slot."""
+    stage: _Staging
+    row_base: np.ndarray          # int64 [pages + 1]: each page's first row
+    rows_slot: int                # row_base on the device
+    page_slots: List[int]         # each page's bytes
+    dict_slot: Optional[int]      # the padded numeric dictionary
+    def_slots: Optional[tuple]    # definition levels: segs + run tables
+    val_slots: Optional[tuple]    # dictionary indexes or RLE booleans
+
+
+def _stage_chunk(rc: _RawColumn, has_defs: bool) -> _ChunkStage:
+    """Stage a chunk's dictionary, page bytes and, for each stream kind
+    that has hybrid pages, one segment table (cuda_kernels.hybrid_segments)
+    over all its pages: every page is a segment of its kind at its first
+    row, so a page whose values are not hybrid (PLAIN) is a segment
+    without runs."""
+    plan = rc.plan
+    stage = _Staging()
+    dict_slot = None
+    if rc.dictionary is not None and not plan.is_string:
+        dpad = np.zeros(_bucket(len(rc.dictionary), 16),
+                        rc.dictionary.dtype.newbyteorder("="))
+        dpad[:len(rc.dictionary)] = rc.dictionary
+        dict_slot = stage.add(dpad)
+    row_base = np.zeros(len(rc.pages) + 1, np.int64)
+    np.cumsum([pg.num_values for pg in rc.pages], out=row_base[1:])
+    page_slots, windows = [], []
+    for pg in rc.pages:
+        need = len(pg.data)
+        if pg.kind == "plain":
+            need = max(need, pg.val_off
+                       + pg.num_values * _PHYS_WIDTH[plan.phys])
+        elif pg.kind == "boolplain":
+            need = max(need, pg.val_off + (pg.num_values + 7) // 8)
+        # 8 zero bytes past the page: a last bit-packed group that runs
+        # past the page's data reads zeros, never a neighbour's bytes
+        slot = stage.add(np.frombuffer(pg.data, np.uint8), need + 8)
+        off, _, nbytes = stage.parts[slot]
+        page_slots.append(slot)
+        windows.append((off, off + nbytes))
+
+    def segments(widths_and_runs):
+        """Stage one segment table over every page, given each page's
+        (bit width, run table)."""
+        tables = CK.hybrid_segments([
+            (pg.num_values, lo, hi, bw, rt.starts, rt.is_rle, rt.vals,
+             rt.bits) for pg, (lo, hi), (bw, rt)
+            in zip(rc.pages, windows, widths_and_runs)])
+        return tuple(stage.add(a) for a in tables)
+
+    def_slots = val_slots = None
+    if has_defs:
+        def_slots = segments([(1, pg.def_runs) for pg in rc.pages])
+    hybrid = [pg.kind in ("dict", "boolrle") and pg.val_runs is not None
+              for pg in rc.pages]
+    if any(hybrid):
+        val_slots = segments([(pg.bit_width, pg.val_runs) if h
+                              else (0, _EMPTY_RUNS)
+                              for pg, h in zip(rc.pages, hybrid)])
+    return _ChunkStage(stage, row_base, stage.add(row_base), page_slots,
+                       dict_slot, def_slots, val_slots)
+
+
+def _run_chunk_program(rc: _RawColumn, cs: _ChunkStage,
+                       buf: torch.Tensor, views: list):
+    """Decode a staged chunk on the device: one hybrid_expand launch per
+    stream kind over all its pages, then chunk-wide validity, dense
+    non-null positions, null codes, dictionary gather, scale, dtype and
+    null fill; PLAIN pages write their rows in between. `buf` is the
+    staged buffer and `views` its typed slots. Returns (values [n] in the
+    table dtype, validity [n] or None when no definition levels were
+    expanded)."""
+    plan = rc.plan
+    dev = buf.device
+    n = int(cs.row_base[-1])
+    out_name = "int32" if plan.is_string else plan.out_dtype
+    out_t = dt.TORCH_OF[out_name]
+    valid = idx = None
+    if cs.def_slots is not None:
+        levels = CK.hybrid_expand_segments(
+            buf, *(views[s] for s in cs.def_slots), n)
+        valid = levels == 1
+        # a page's non-null values are packed densely at its first row:
+        # row i reads the slot of its page's base plus the non-null rows
+        # before it in the page (a chunk-wide cumsum less the non-null
+        # rows of the pages before), 0 before the page's first one
+        seen = torch.cumsum(valid, 0)
+        rows = views[cs.rows_slot]
+        before = torch.cat([seen.new_zeros(1), seen])[rows[:-1]]
+        page = torch.repeat_interleave(
+            torch.arange(len(rc.pages), device=dev), rows.diff(),
+            output_size=n)
+        idx = rows[:-1][page] + (seen - 1 - before[page]).clamp(min=0)
 
     def at_rows(dense):
-        return dense if pos is None else dense[pos]
+        return dense if idx is None else dense[idx]
 
-    if spec.kind == "plain":
-        vals_at = at_rows(_assemble_plain_body(
-            data, val_off, spec.itemsize, spec.out_dtype, n_bucket))
-    elif spec.kind == "dict":
-        codes = at_rows(CK.hybrid_expand(data, *val_runs, spec.bit_width,
-                                         n_bucket))
-        if valid is not None:
-            # null rows carry raw code 0 (arrow_bridge's NaN -> 0 before
-            # the rank remap)
-            codes = torch.where(valid, codes, 0)
-        if spec.dict_bucket:
-            vals_at = dictvals[codes.clamp(0, spec.dict_bucket - 1).long()]
-        else:
-            vals_at = codes
-    elif spec.kind == "boolplain":
-        bits_i = val_off * 8 + (torch.arange(n_bucket, device=dev)
-                                if pos is None else pos)
-        byte0 = (bits_i >> 3).clamp(0, data.shape[0] - 1)
-        vals_at = ((data[byte0] >> (bits_i & 7).to(torch.uint8)) & 1) > 0
-    elif spec.kind == "boolrle":
-        vals_at = at_rows(CK.hybrid_expand(data, *val_runs, 1,
-                                           n_bucket)) > 0
-    else:  # pragma: no cover - _make_page guards this
-        raise AssertionError(spec.kind)
-    if spec.scale != 1:
-        vals_at = vals_at * spec.scale
-    vals_at = vals_at.to(out_t)
-    if valid is None:
-        return vals_at[:n_values], None, 0
-    # float nulls: NaN carries the null (arrow_bridge's densification)
-    fill = float("nan") if out_t.is_floating_point else 0
-    out = torch.where(valid, vals_at, torch.full((), fill, dtype=out_t,
-                                                 device=dev))
-    n_nulls = (in_rows & ~valid).sum()
-    return out[:n_values], valid[:n_values], n_nulls
+    if cs.val_slots is not None:
+        codes = at_rows(CK.hybrid_expand_segments(
+            buf, *(views[s] for s in cs.val_slots), n))
+        if plan.phys == "BOOLEAN":  # RLE booleans
+            vals = codes > 0
+        else:  # dictionary indexes
+            if valid is not None:
+                # null rows carry raw code 0 (arrow_bridge's NaN -> 0
+                # before the rank remap)
+                codes = torch.where(valid, codes, 0)
+            if cs.dict_slot is not None:
+                dictvals = views[cs.dict_slot]
+                vals = dictvals[codes.clamp(0, dictvals.shape[0] - 1)
+                                .long()]
+            else:
+                vals = codes
+        vals = _scaled(vals, plan.scale, out_t)
+    else:
+        vals = torch.empty(n, dtype=out_t, device=dev)
+    itemsize = _PHYS_WIDTH.get(plan.phys, 0)
+    for p, pg in enumerate(rc.pages):
+        if pg.kind not in ("plain", "boolplain"):
+            continue
+        a, b = int(cs.row_base[p]), int(cs.row_base[p + 1])
+        pos = None if idx is None else idx[a:b] - a
+        vals[a:b] = _scaled(_plain_page_values(
+            pg, views[cs.page_slots[p]], itemsize, out_name, pos),
+            plan.scale, out_t)
+    if valid is not None:
+        # float nulls: NaN carries the null (arrow_bridge's densification)
+        fill = float("nan") if out_t.is_floating_point else 0
+        vals = torch.where(valid, vals, torch.full((), fill, dtype=out_t,
+                                                   device=dev))
+    return vals, valid
 
 
 # ---------------------------------------------------------------------------
@@ -912,103 +978,45 @@ class _Staging:
         self.size += -(-nbytes // 8) * 8
         return len(self.parts) - 1
 
-    def add_runs(self, rt: _RunTable, bucket: int, sentinel: int) -> tuple:
-        return tuple(self.add(a) for a in _pad_runs(rt, bucket, sentinel))
-
-    def to(self, dev) -> list:
+    def to(self, dev):
+        """(the staged buffer on `dev`, a typed view of each array)"""
         buf = np.zeros(max(self.size, 8), np.uint8)
         for off, a, _ in self.parts:
             buf[off:off + a.nbytes] = a.reshape(-1).view(np.uint8)
         d = torch.from_numpy(buf).to(dev)
-        return [d[off:off + nbytes].view(dt.TORCH_OF[a.dtype.name])
-                if a.dtype != np.uint8 else d[off:off + nbytes]
-                for off, a, nbytes in self.parts]
+        return d, [d[off:off + nbytes] if a.dtype == np.uint8 else
+                   d[off:off + a.nbytes].view(
+                       dt.TORCH_OF[a.dtype.name]).view(a.shape)
+                   for off, a, nbytes in self.parts]
 
 
 def _decode_column(rc: _RawColumn, cap: int, dev) -> Column:
-    """Decode one column chunk's pages on the device and assemble the
-    padded column: one copy to the device, one page decode per page."""
+    """Decode one column chunk on the device and assemble the padded
+    column: one copy to the device, one chunk program."""
     plan = rc.plan
-    stats_clean = plan.null_count == 0
-    dict_numeric = rc.dictionary is not None and not plan.is_string
-    out_name = "int32" if plan.is_string else plan.out_dtype
-    stage = _Staging()
-    dict_slot = None
-    if dict_numeric:
-        dict_bucket = _bucket(len(rc.dictionary), 16)
-        dpad = np.zeros(dict_bucket, rc.dictionary.dtype.newbyteorder("="))
-        dpad[:len(rc.dictionary)] = rc.dictionary
-        dict_slot = stage.add(dpad)
-    planned = []
-    for pg in rc.pages:
-        # stats prove zero nulls -> every def level is 1, so the level
-        # expansion and the dense-position cumsum are identities: decode
-        # as if the page had no def levels (the same stats trust drops
-        # the validity mask below)
-        has_defs = pg.has_defs and not stats_clean
-        n_bucket = _bucket(pg.num_values, 128)
-        if pg.kind == "plain":
-            itemsize = _PHYS_WIDTH[plan.phys]
-            byte_need = max(len(pg.data), pg.val_off + n_bucket * itemsize)
-        elif pg.kind == "dict":
-            itemsize = 0
-            byte_need = len(pg.data) + 4
-        else:
-            itemsize = 0
-            byte_need = max(len(pg.data), pg.val_off + n_bucket // 8 + 8)
-        spec = _PageSpec(
-            kind=pg.kind, out_dtype=out_name, itemsize=itemsize,
-            bit_width=pg.bit_width, has_defs=has_defs,
-            byte_bucket=_bucket(byte_need, 4096), n_bucket=n_bucket,
-            def_runs=_bucket(len(pg.def_runs.starts), _ZERO_RUNS)
-            if has_defs else _ZERO_RUNS,
-            val_runs=_bucket(len(pg.val_runs.starts), _ZERO_RUNS)
-            if pg.val_runs is not None else _ZERO_RUNS,
-            dict_bucket=dict_bucket if dict_numeric and pg.kind == "dict"
-            else 0,
-            scale=plan.scale)
-        sentinel = n_bucket + 1
-        data_slot = stage.add(np.frombuffer(pg.data, np.uint8),
-                              spec.byte_bucket)
-        d_slots = stage.add_runs(pg.def_runs, spec.def_runs, sentinel) \
-            if has_defs else None
-        v_slots = None
-        if pg.kind in ("dict", "boolrle"):
-            rt = pg.val_runs if pg.val_runs is not None else _RunTable(
-                *(np.zeros(0, t) for t in (np.int32, bool, np.int32,
-                                           np.int64)))
-            v_slots = stage.add_runs(rt, spec.val_runs, sentinel)
-        planned.append((pg, spec, data_slot, d_slots, v_slots))
-    views = stage.to(dev)
-    dictvals = views[dict_slot] if dict_slot is not None else None
-    parts, valid_parts, null_scalars = [], [], []
-    for pg, spec, data_slot, d_slots, v_slots in planned:
-        vals, valid, n_nulls = _run_page_program(
-            spec, views[data_slot], pg.num_values,
-            None if d_slots is None else [views[s] for s in d_slots],
-            None if v_slots is None else [views[s] for s in v_slots],
-            pg.val_off, dictvals)
-        parts.append(vals)
-        valid_parts.append(valid)
-        null_scalars.append(n_nulls)
-        decode_counts[f"pages_{pg.kind}"] += 1
-    out_t = dt.TORCH_OF[out_name]
+    # stats prove zero nulls -> every def level is 1, so the level
+    # expansion and the dense-position cumsum are identities: decode as
+    # if the chunk had no def levels (the same stats trust drops the
+    # validity mask below)
+    has_defs = plan.max_def > 0 and plan.null_count != 0
+    out_t = dt.TORCH_OF["int32" if plan.is_string else plan.out_dtype]
     data = torch.zeros(cap, dtype=out_t, device=dev)
-    valid_all = None
-    if parts:
-        n = min(sum(p.shape[0] for p in parts), cap)
-        data[:n] = torch.cat(parts)[:cap]
-        if valid_parts[0] is not None:
-            valid_all = torch.zeros(cap, dtype=torch.bool, device=dev)
-            valid_all[:n] = torch.cat(valid_parts)[:cap]
-    # mask presence must match arrow_bridge: floats never carry one
-    # (NaN is the null), others only when the chunk actually has nulls
     valid_out = None
-    if not out_t.is_floating_point and valid_all is not None:
-        if plan.null_count is not None and plan.null_count > 0:
-            valid_out = valid_all
-        elif int(sum(null_scalars)) > 0:
-            valid_out = valid_all
+    if rc.pages:
+        cs = _stage_chunk(rc, has_defs)
+        buf, views = cs.stage.to(dev)
+        vals, valid = _run_chunk_program(rc, cs, buf, views)
+        n = min(vals.shape[0], cap)
+        data[:n] = vals[:n]
+        # mask presence must match arrow_bridge: floats never carry one
+        # (NaN is the null), others only when the chunk actually has nulls
+        if valid is not None and not out_t.is_floating_point and (
+                (plan.null_count is not None and plan.null_count > 0)
+                or bool((~valid).any())):
+            valid_out = torch.zeros(cap, dtype=torch.bool, device=dev)
+            valid_out[:n] = valid[:n]
+        for pg in rc.pages:
+            decode_counts[f"pages_{pg.kind}"] += 1
     dictionary = None
     if plan.is_string:
         raw_dict = rc.dictionary if rc.dictionary is not None \

@@ -24,6 +24,7 @@ import threading
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
+import numpy as np
 import torch
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
@@ -51,9 +52,10 @@ _ENTRIES = {
     # pk, splitters, out, n, n_spl, stream
     "range_partition": ("range_partition_launch",
                         [_P, _P, _P, _I64, _I, _P]),
-    # data, nb, starts, is_rle, vals, bits, n_runs, bw, out, n, stream
-    "hybrid_expand": ("hybrid_expand_launch",
-                      [_P, _I64, _P, _P, _P, _P, _I, _I, _P, _I64, _P]),
+    # data, nb, segs, n_segs, starts, is_rle, vals, bits, n_runs, out, n,
+    # stream
+    "hybrid_expand": ("hybrid_expand_segments_launch",
+                      [_P, _I64, _P, _I, _P, _P, _P, _P, _I, _P, _I64, _P]),
     # codes, n, k, values pointers, mask pointers, c, out, stream
     "groupby_sum": ("groupby_sum_launch",
                     [_P, _I64, _I, _P, _P, _I, _P, _P]),
@@ -428,16 +430,19 @@ def range_partition(pk: torch.Tensor, splitters: torch.Tensor):
 # ---------------------------------------------------------------------------
 
 HYBRID_MAX_BITWIDTH = 24  # the 4-byte window of the bit extractor
+# columns of a segment table row (csrc/hybrid_expand.cu)
+SEG_BASE, SEG_N, SEG_LO, SEG_HI, SEG_BW, SEG_RUN_LO, SEG_RUN_HI = range(7)
+SEG_FIELDS = 7
 
 
 def hybrid_expand_plain(data: torch.Tensor, starts: torch.Tensor,
                         is_rle: torch.Tensor, vals: torch.Tensor,
                         bits: torch.Tensor, bw: int,
                         n_bucket: int) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: the JAX package's XLA body
-    (bodo_tpu/io/device_decode.py:486-525). The owning run of each output
-    index comes from scattering each run's index at its start and a
-    running max (sentinel starts past n_bucket drop); RLE runs give
+    """Plain PyTorch version of one page of the kernel: the JAX package's
+    XLA body (bodo_tpu/io/device_decode.py:486-525). The owning run of
+    each output index comes from scattering each run's index at its start
+    and a running max (sentinel starts past n_bucket drop); RLE runs give
     their value, bit-packed runs bw bits read little-endian through a
     window of ceil((7 + bw) / 8) bytes, byte indices clipped to the
     page."""
@@ -464,16 +469,84 @@ def hybrid_expand_plain(data: torch.Tensor, starts: torch.Tensor,
     return torch.where(rv >= 0, rv, packed)
 
 
-def hybrid_expand(data: torch.Tensor, starts: torch.Tensor,
-                  is_rle: torch.Tensor, vals: torch.Tensor,
-                  bits: torch.Tensor, bw: int, n_bucket: int) -> torch.Tensor:
-    """Expand parquet RLE/bit-packed hybrid runs into int32 [n_bucket]
-    values: uint8 page bytes data [nb], run tables starts int32
-    (nondecreasing; padding runs carry a start past n_bucket), is_rle
-    bool, vals int32, bits int64 (bit offset of a bit-packed run's first
-    value), all [n_runs], and the bit width 0 <= bw <= 24. CPU tensors
-    take the plain version; CUDA tensors launch the kernel
-    (csrc/hybrid_expand.cu) or raise.
+def hybrid_expand_segments_plain(data: torch.Tensor, segs: torch.Tensor,
+                                 starts: torch.Tensor, is_rle: torch.Tensor,
+                                 vals: torch.Tensor, bits: torch.Tensor,
+                                 n_total: int) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: for each segment, the plain
+    version of its page (`hybrid_expand_plain` over the page bytes
+    data[lo:hi] and its runs, rebased to the page) written at its output
+    base. Outputs no segment covers, and the outputs of a segment without
+    runs, are 0."""
+    out = torch.zeros(n_total, dtype=torch.int32, device=data.device)
+    for base, n, lo, hi, bw, run_lo, run_hi in segs.tolist():
+        if n == 0 or run_lo >= run_hi:
+            continue
+        runs = slice(run_lo, run_hi)
+        out[base:base + n] = hybrid_expand_plain(
+            data[lo:hi], starts[runs] - base, is_rle[runs], vals[runs],
+            bits[runs] - 8 * lo, bw, n)
+    return out
+
+
+def hybrid_segments(streams):
+    """The host tables of one hybrid_expand_segments launch. `streams`
+    lists each segment, a hybrid stream of one page, in output order, as
+    (n_out, lo, hi, bw, starts, is_rle, vals, bits): its output count,
+    its page's byte window [lo, hi) in the staged buffer, its bit width
+    and its run table as the page's run-header walk gives it (starts
+    from the stream's first output, int64 bits from bit 0 of the page).
+    Outputs are dense: a segment's base is the sum of the counts before
+    it. Returns numpy (segs int64 [S, 7], starts int32, is_rle bool,
+    vals int32, bits int64), the run tables concatenated with starts
+    rebased to each segment's base and bits to absolute bit offsets in
+    the staged buffer. Raises ValueError on a table the kernel does not
+    take."""
+    segs = np.zeros((len(streams), SEG_FIELDS), np.int64)
+    parts = ([], [], [], [])
+    base = n_runs = 0
+    for s, (n, lo, hi, bw, st, rle, vv, bb) in enumerate(streams):
+        k = len(st)
+        if not (n >= 0 and 0 <= lo <= hi and 0 <= bw <= HYBRID_MAX_BITWIDTH
+                and len(rle) == len(vv) == len(bb) == k):
+            raise ValueError(f"hybrid segment {s}: n={n} bytes [{lo}, "
+                             f"{hi}) bw={bw} with {k} runs")
+        if k and (hi == lo or st[0] < 0 or np.any(np.diff(st) < 0)):
+            raise ValueError(f"hybrid segment {s}: starts must be "
+                             f"nonnegative and nondecreasing, over a "
+                             f"page of at least one byte")
+        segs[s] = (base, n, lo, hi, bw, n_runs, n_runs + k)
+        parts[0].append(np.asarray(st, np.int64) + base)
+        parts[1].append(np.asarray(rle, bool))
+        parts[2].append(np.asarray(vv, np.int32))
+        parts[3].append(np.asarray(bb, np.int64) + 8 * lo)
+        base += n
+        n_runs += k
+    starts, is_rle, vals, bits = (
+        np.concatenate(p) if p else np.zeros(0, t)
+        for p, t in zip(parts, (np.int64, bool, np.int32, np.int64)))
+    if base >= 2 ** 31 or n_runs >= 2 ** 31 or \
+            (n_runs and starts.max() >= 2 ** 31):
+        raise ValueError(f"hybrid segments: {base} outputs, {n_runs} runs")
+    return segs, starts.astype(np.int32), is_rle, vals, bits
+
+
+def hybrid_expand_segments(data: torch.Tensor, segs: torch.Tensor,
+                           starts: torch.Tensor, is_rle: torch.Tensor,
+                           vals: torch.Tensor, bits: torch.Tensor,
+                           n_total: int) -> torch.Tensor:
+    """Expand every hybrid stream of a column chunk in one launch into
+    int32 [n_total] values: uint8 staged bytes data [nb] (every page of
+    the chunk), the segment table int64 segs [S, 7] and the run tables
+    starts int32, is_rle bool, vals int32, bits int64 [n_runs], as
+    `hybrid_segments` makes them. Segment s's outputs are
+    [segs[s, 0], segs[s, 0] + segs[s, 1]), each what the plain version of
+    its page gives. CPU tensors take the plain version; CUDA tensors
+    launch the kernel (csrc/hybrid_expand.cu) or raise. Nothing syncs
+    with the host: the table's contract (dense bases, starts
+    nondecreasing within a segment, widths 0-24) is checked where
+    `hybrid_segments` builds it, and the kernel clamps every window and
+    run range to the buffers it was given.
 
     The reference gates its kernel to <= 2048 runs and n_bucket, nb * 8
     below 2^24 (pallas_kernels.py:624-626), the f32 exactness of its MXU
@@ -481,11 +554,12 @@ def hybrid_expand(data: torch.Tensor, starts: torch.Tensor,
     so the port drops that gate, as it dropped lut_gather's. The
     reference's kernel and its XLA body give the same integers, so the
     result does not change."""
-    args = (data, starts, is_rle, vals, bits)
+    args = (data, segs, starts, is_rle, vals, bits)
     if all(t.device.type == "cpu" for t in args):
-        return hybrid_expand_plain(*args, bw, n_bucket)
+        return hybrid_expand_segments_plain(*args, n_total)
     dev = _on_one_cuda_device("hybrid_expand", args)
     _check("hybrid_expand data", data, torch.uint8, 1)
+    _check("hybrid_expand segs", segs, torch.int64, 2)
     _check("hybrid_expand starts", starts, torch.int32, 1)
     _check("hybrid_expand is_rle", is_rle, torch.bool, 1)
     _check("hybrid_expand vals", vals, torch.int32, 1)
@@ -493,17 +567,49 @@ def hybrid_expand(data: torch.Tensor, starts: torch.Tensor,
     n_runs = starts.shape[0]
     if not (is_rle.shape[0] == vals.shape[0] == bits.shape[0] == n_runs):
         raise ValueError("hybrid_expand: run tables differ in length")
+    n_segs = segs.shape[0]
+    if segs.shape[1] != SEG_FIELDS or not 0 <= n_segs < 2 ** 31:
+        raise ValueError(f"hybrid_expand: a segment table of shape "
+                         f"{tuple(segs.shape)}")
+    if not 0 <= n_total < 2 ** 31 or n_runs >= 2 ** 31 or \
+            data.shape[0] < 1:
+        raise ValueError(f"hybrid_expand: {n_total} outputs, {n_runs} "
+                         f"runs over {data.shape[0]} staged bytes")
+    out = torch.empty(n_total, dtype=torch.int32, device=dev)
+    if n_total and not n_segs:
+        return out.zero_()
+    if n_total:
+        _launch("hybrid_expand", dev, data.data_ptr(), data.shape[0],
+                segs.data_ptr(), n_segs, starts.data_ptr(),
+                is_rle.data_ptr(), vals.data_ptr(), bits.data_ptr(), n_runs,
+                out.data_ptr(), n_total)
+    return out
+
+
+def hybrid_expand(data: torch.Tensor, starts: torch.Tensor,
+                  is_rle: torch.Tensor, vals: torch.Tensor,
+                  bits: torch.Tensor, bw: int, n_bucket: int) -> torch.Tensor:
+    """Expand one page's parquet RLE/bit-packed hybrid runs into int32
+    [n_bucket] values: uint8 page bytes data [nb], run tables starts
+    int32 (nondecreasing; padding runs may carry a start past n_bucket),
+    is_rle bool, vals int32, bits int64 (bit offset of a bit-packed run's
+    first value), all [n_runs], and the bit width 0 <= bw <= 24. CPU
+    tensors take the plain version; CUDA tensors launch the kernel as one
+    segment (the whole output, the whole page, every run) or raise."""
+    args = (data, starts, is_rle, vals, bits)
+    if all(t.device.type == "cpu" for t in args):
+        return hybrid_expand_plain(*args, bw, n_bucket)
+    dev = _on_one_cuda_device("hybrid_expand", args)
+    n_runs = starts.shape[0]
     if not 1 <= n_runs < 2 ** 31 or data.shape[0] < 1:
         raise ValueError(f"hybrid_expand: {n_runs} runs over "
                          f"{data.shape[0]} page bytes")
     if not 0 <= bw <= HYBRID_MAX_BITWIDTH:
         raise ValueError(f"hybrid_expand: bit width {bw}")
-    out = torch.empty(n_bucket, dtype=torch.int32, device=dev)
-    if n_bucket:
-        _launch("hybrid_expand", dev, data.data_ptr(), data.shape[0],
-                starts.data_ptr(), is_rle.data_ptr(), vals.data_ptr(),
-                bits.data_ptr(), n_runs, bw, out.data_ptr(), n_bucket)
-    return out
+    seg = torch.tensor([[0, n_bucket, 0, data.shape[0], bw, 0, n_runs]],
+                       dtype=torch.int64).to(dev)
+    return hybrid_expand_segments(data, seg, starts, is_rle, vals, bits,
+                                  n_bucket)
 
 
 # ---------------------------------------------------------------------------

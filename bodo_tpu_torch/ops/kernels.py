@@ -40,11 +40,14 @@ def value_ok(data, valid, padmask):
 def compact(mask, arrays: Tuple, capacity_out: Optional[int] = None):
     """Stable-compact rows where `mask` is True to the front.
 
-    Returns (compacted arrays, new_count as a host int). Rows past
-    new_count are zero, as in the JAX package."""
+    Returns (compacted arrays, the number of live rows in `mask` as a
+    host int). As in the JAX package, that count is taken before the cut
+    to `capacity_out`, so a count above it reports an overflow; rows past
+    the kept ones are zero."""
     cap = mask.shape[0]
     out_cap = capacity_out if capacity_out is not None else cap
-    idx = torch.nonzero(mask).squeeze(1)[:out_cap]  # ascending: stable
+    live = torch.nonzero(mask).squeeze(1)  # ascending: stable
+    idx = live[:out_cap]
     n = idx.numel()
     outs = []
     for a in arrays:
@@ -55,7 +58,7 @@ def compact(mask, arrays: Tuple, capacity_out: Optional[int] = None):
                         device=a.device)
         z[:n] = a[idx]
         outs.append(z)
-    return tuple(outs), n
+    return tuple(outs), live.numel()
 
 
 def gather_rows(perm, arrays: Tuple):

@@ -14,14 +14,17 @@ per source, all started together), then:
      {1, 4, 4096} buckets; range_partition at N = 5,000,000 for 1, 3
      and 4095 splitters, with keys whose top bit is set, the padding
      key, splitters equal to keys or duplicated, and an all-padding
-     shard's splitters; hybrid_expand on RLE-only, bit-packed-only and
-     mixed streams of 1, 100 and 20,000 values at bit widths 0, 1, 2, 8,
-     17 and 24 with run tables of 40 and 4,096 runs, over the whole
-     padded output; groupby_sum at N in {0, 1, 1000, 2^24} rows, K in
-     {1, 64, 4096} slots and C in {1, 4, 16} columns (K = 4096, C = 16 in
-     two column tiles) with masked rows and codes outside [0, K), the
-     kernel and its plain version each against the float64 sums (counts
-     exact, sums within 1e-5 * sum(|x|) per slot); and times
+     shard's splitters; hybrid_expand one page at a time on RLE-only,
+     bit-packed-only and mixed streams of 1, 100 and 20,000 values at
+     bit widths 0, 1, 2, 8, 17 and 24 with run tables of 40 and 4,096
+     runs, over the whole padded output, and a chunk at a time on random
+     chunks of 1 to 200 segments at widths 0, 1, 2, 8, 15-18 and 24, one
+     staged past 256 MiB (bit offsets past 2^31); groupby_sum at N in
+     {0, 1, 1000, 2^24} rows, K in {1, 64, 4096} slots and C in {1, 4,
+     16} columns (K = 4096, C = 16 in two column tiles) with masked rows
+     and codes outside [0, K), the kernel and its plain version each
+     against the float64 sums (counts exact, sums within 1e-5 * sum(|x|)
+     per slot); and times
      lut_gather, its plain version and the PyTorch call that computes
      the same function;
   2. drives the main paths, each with the route and launch counts set to
@@ -35,12 +38,14 @@ per source, all started together), then:
        writes it (pandas' to_parquet with pyarrow's defaults: 20 row
        groups, snappy, dictionary pages with the fall-back to PLAIN),
        read by read_parquet through the device decode route
-       (hybrid_expand on every dictionary-index page, lut_gather as
-       dict_gather once a row group for the string column), every column
-       on the device, bit-identical to the arrays' table; the pipeline
-       from that file against the numpy oracle and, row for row, the REP
-       run; hybrid_expand is then held against its plain version and
-       timed on a page of each bit width the read decoded;
+       (hybrid_expand once a column chunk over all its dictionary-index
+       pages, at least once and at most once a chunk that has them,
+       lut_gather as dict_gather once a row group for the string column),
+       every column on the device, bit-identical to the arrays' table; the
+       pipeline from that file against the numpy oracle and, row for row,
+       the REP run; hybrid_expand is then held against its plain version
+       and timed on the read's largest chunk, and on one bw = 8 page of
+       20,000 values as one segment;
      - the star-schema join at 20,000,000 fact and 5,000,000 dimension
        rows (bench.py's --suite join shape, about one month of TPC-H
        SF10 lineitem against its orders), through the hash join
@@ -559,12 +564,69 @@ def encode_hybrid(rng, n: int, n_runs: int, bw: int, kind: str):
     return bytes(out), np.concatenate(values)[:n]
 
 
+HYBRID_WIDTHS = (0, 1, 2, 8, 15, 16, 17, 18, 24)
+
+
+def hybrid_chunk(rng, n_segs: int, gap_at: int = -1, gap: int = 0):
+    """A column chunk of `n_segs` random hybrid segments staged in one
+    buffer as the decode stages them, each page at an offset that is not
+    a multiple of 8 between bytes that no value may read (0xA5): a
+    header prefix, the stream (RLE, bit-packed, mixed, or a page without
+    hybrid values: no runs), its last byte cut off now and then, zero
+    padding; 0-, 1- and up to 3,000-value segments at the widths above.
+    `gap` bytes of 0xA5 go before segment `gap_at`. Returns (buffer, the
+    hybrid_segments streams, each segment's values where the cut lost
+    none, else None)."""
+    import numpy as np
+    from bodo_tpu_torch.io import device_decode as DD
+    pages, streams, truths, off = [], [], [], 5
+    for s in range(n_segs):
+        if s == gap_at:
+            off += gap
+        off += int(rng.integers(1, 8))
+        off += off % 8 == 0
+        n = int(rng.choice([0, 1, int(rng.integers(2, 3001))],
+                           p=[0.1, 0.1, 0.8]))
+        bw = int(rng.choice(HYBRID_WIDTHS))
+        kind = str(rng.choice(["rle", "packed", "mixed", "none"],
+                              p=[0.25, 0.3, 0.4, 0.05]))
+        prefix = rng.integers(0, 256, int(rng.integers(0, 6)),
+                              dtype=np.uint8).tobytes()
+        stream, values = encode_hybrid(
+            rng, n, int(rng.integers(1, 60)), bw,
+            "mixed" if kind == "none" else kind) if n else (b"", [])
+        page = prefix + stream + b"\x00"
+        rt = DD._parse_hybrid(page, len(prefix), len(page) - 1, bw, n)
+        runs = [rt.starts, rt.is_rle, rt.vals, rt.bits]
+        truth = np.asarray(values, np.int64)
+        if kind == "none":
+            runs = [a[:0] for a in runs]
+            truth = np.zeros(n, np.int64)
+        cut = int(rng.random() < 0.15 and kind == "packed" and n > 0)
+        if cut:
+            truth = None
+        page = page[:len(page) - 1 - cut] + bytes(int(rng.integers(0, 9)))
+        if not page:
+            page = b"\x00"
+        pages.append((off, page))
+        streams.append((n, off, off + len(page), bw, *runs))
+        truths.append(truth)
+        off += len(page)
+    buf = np.full(off + 13, 0xA5, np.uint8)
+    for at, page in pages:
+        buf[at:at + len(page)] = np.frombuffer(page, np.uint8)
+    return buf, streams, truths
+
+
 def check_hybrid_expand(dev):
-    """Phase 1 for hybrid_expand: bit-identity with its plain version on
-    RLE-only, bit-packed-only and mixed streams of 1, 100 and 20,000
-    values at bit widths 0, 1, 2, 8, 17 and 24, parsed into run tables
-    padded to 40 and 4,096 runs, over the whole padded output (the tail
-    past the last value included)."""
+    """Phase 1 for hybrid_expand: bit-identity with its plain version.
+    One page at a time (the per-page entry, a one-segment launch): RLE-
+    only, bit-packed-only and mixed streams of 1, 100 and 20,000 values
+    at bit widths 0, 1, 2, 8, 17 and 24, parsed into run tables padded to
+    40 and 4,096 runs, over the whole padded output. A chunk in one
+    launch (hybrid_expand_segments): random chunks of 1 to 200 segments
+    at widths 0, 1, 2, 8, 15-18 and 24 (hybrid_chunk), one of them
+    staged past 256 MiB so that bit offsets pass 2^31."""
     import numpy as np
     import torch
     from bodo_tpu_torch.io import device_decode as DD
@@ -579,7 +641,12 @@ def check_hybrid_expand(dev):
                     stream, values = encode_hybrid(rng, n, table, bw, kind)
                     rt = DD._parse_hybrid(stream, 0, len(stream), bw, n)
                     n_bucket = DD._bucket(n, 128)
-                    padded = DD._pad_runs(rt, table, n_bucket + 1)
+                    k = len(rt.starts)
+                    padded = [np.concatenate([a, np.full(table - k, v,
+                                                         a.dtype)])
+                              for a, v in ((rt.starts, n_bucket + 1),
+                                           (rt.is_rle, False),
+                                           (rt.vals, 0), (rt.bits, 0))]
                     data = np.zeros(DD._bucket(len(stream) + 4, 4096),
                                     np.uint8)
                     data[:len(stream)] = np.frombuffer(stream, np.uint8)
@@ -594,12 +661,44 @@ def check_hybrid_expand(dev):
                         raise AssertionError(
                             f"hybrid_expand differs from its plain version "
                             f"or the stream at bw={bw} {kind} n={n} "
-                            f"runs={len(rt.starts)}/{table}")
+                            f"runs={k}/{table}")
                     cases += 1
         print(f"hybrid_expand bw={bw}: bit_identical=True on {cases} "
-              f"streams (rle, packed and mixed; 1, 100 and 20000 values; "
+              f"pages (rle, packed and mixed; 1, 100 and 20000 values; "
               f"run tables of 40 and 4096), every output of the padded "
               f"n_bucket compared, the values equal to the stream's")
+    big = 257 << 20  # bytes before the last segments: bits past 2^31
+    for n_segs, gap_at in ((1, -1), (2, -1), (7, -1), (50, -1), (200, -1),
+                           (200, -1), (200, -1), (120, 100)):
+        buf, streams, truths = hybrid_chunk(rng, n_segs, gap_at,
+                                            big if gap_at >= 0 else 0)
+        tables = CK.hybrid_segments(streams)
+        segs = tables[0]
+        n_total = int(segs[:, CK.SEG_N].sum())
+        args = [torch.from_numpy(a).to(dev) for a in (buf, *tables)]
+        before = CK.launches["hybrid_expand"]
+        got = CK.hybrid_expand_segments(*args, n_total)
+        want = CK.hybrid_expand_segments_plain(*args, n_total)
+        torch.cuda.synchronize()
+        same = bool(torch.equal(got, want))
+        host = got.cpu().numpy()
+        for s, truth in enumerate(truths):
+            base, n = int(segs[s, CK.SEG_BASE]), int(segs[s, CK.SEG_N])
+            if truth is not None and not np.array_equal(
+                    host[base:base + n], truth):
+                same = False
+        widths = sorted({int(w) for w in segs[:, CK.SEG_BW]})
+        print(f"hybrid_expand chunk: segments={n_segs} values={n_total} "
+              f"runs={len(tables[1])} staged_bytes={buf.shape[0]} "
+              f"widths={widths} max_bit_offset="
+              f"{int(tables[4].max()) if len(tables[4]) else 0}: "
+              f"bit_identical={same} launches="
+              f"{CK.launches['hybrid_expand'] - before}")
+        if not same:
+            raise AssertionError(f"hybrid_expand_segments differs from its "
+                                 f"plain version or the streams "
+                                 f"({n_segs} segments)")
+        del args, got, want
 
 
 def _groupby_sum_case(g, dev, n: int, k: int, c: int):
@@ -853,7 +952,8 @@ def run_taxi_read(trips, weather, rep_got, oracle):
     read just after, and hold the table bit-identical to the arrays'
     table; then the pipeline from that file against the numpy oracle
     and, row for row, the REP run. Returns (kernel launches of the cold
-    read, the arguments of every hybrid_expand call of a later read)."""
+    read, the arguments of every hybrid_expand_segments call of a later
+    read: one a chunk that has dictionary-index pages)."""
     import tempfile
     import numpy as np
     import torch
@@ -898,10 +998,19 @@ def run_taxi_read(trips, weather, rep_got, oracle):
                 counts["device_decode_cols"] != want_cols:
             raise AssertionError(f"taxi read: not every column decoded on "
                                  f"the device: {counts}")
-        if launches["hybrid_expand"] < 1 or \
+        # a chunk has dictionary-index pages where it has a dictionary
+        # page; the file has no nulls, so no definition-level launches
+        dict_chunks = sum(c.dictionary_page_offset is not None
+                          for g in md.row_groups for c in g.columns)
+        print(f"taxi read: hybrid_expand launches="
+              f"{launches['hybrid_expand']} (one a chunk with dictionary-"
+              f"index pages: {dict_chunks} of {want_cols} chunks; "
+              f"{counts['pages_dict']} dictionary-index pages)")
+        if not 1 <= launches["hybrid_expand"] <= dict_chunks or \
                 launches["dict_gather"] != md.num_row_groups:
             raise AssertionError(f"taxi read: hybrid_expand or dict_gather "
-                                 f"launches {launches}")
+                                 f"launches {launches}, {dict_chunks} "
+                                 f"chunks with dictionary pages")
         if got.names != trips.names or got.nrows != trips.nrows or \
                 got.capacity != trips.capacity:
             raise AssertionError(f"taxi read: {got} vs the arrays' {trips}")
@@ -925,20 +1034,21 @@ def run_taxi_read(trips, weather, rep_got, oracle):
         read_parquet(path)
         torch.cuda.synchronize()
         warm_s = time.perf_counter() - t0
-        with _Capture("hybrid_expand") as expand, \
-                _Capture("_run_page_program", DD) as pages:
+        with _Capture("hybrid_expand_segments") as expand:
             tr = profiling.trace(lambda: read_parquet(path))
-        # the values each page holds, by its staged page bytes, so the
-        # kernel's bound counts only the bytes those values need
-        page_values = {args[1].data_ptr(): args[2] for args in pages.calls}
+        device_calls = sum(r["calls"] for r in tr["top_kernels_ms"])
         print(f"taxi read: decode_warm_s={warm_s:.4f} "
               f"traced_wall_s={tr['traced_wall_s']:.4f} "
               f"device_ms={tr['device_ms']:.3f} "
-              f"device_busy_share={tr['device_busy_share']:.4f}")
-        for r in tr["top_kernels_ms"][:8]:
+              f"device_busy_share={tr['device_busy_share']:.4f} "
+              f"device_calls(top 25 rows)={device_calls}")
+        for r in tr["port_kernels_ms"]:
+            print(f"taxi read (traced): port kernel {r['ms']:.3f} ms "
+                  f"x{r['calls']} {r['kernel'][:100]}")
+        for r in tr["top_kernels_ms"][:10]:
             print(f"taxi read: device {r['ms']:.3f} ms x{r['calls']} "
                   f"{r['kernel'][:100]}")
-        for r in tr["top_ops_device_ms"][:8]:
+        for r in tr["top_ops_device_ms"][:12]:
             print(f"taxi read: operator {r['ms']:.3f} ms x{r['calls']} "
                   f"{r['op'][:100]}")
         # where the read's wall goes, each stage and substage synchronized
@@ -950,8 +1060,9 @@ def run_taxi_read(trips, weather, rep_got, oracle):
             [(P, "_raw_range", "raw range reads"),
              (DD, "_decompress", "page decompression"),
              (DD, "_parse_hybrid", "run-header walks"),
+             (DD, "_stage_chunk", "chunk staging (host)"),
              (DD._Staging, "to", "staging copy to the device"),
-             (DD, "_run_page_program", "page decodes"),
+             (DD, "_run_chunk_program", "chunk decodes"),
              (CK, "dict_gather", "dict_gather")])
         print("taxi read: stages (s, synchronized host clock, one read): "
               + ", ".join(f"{k} {v:.4f}" for k, v in spent.items()))
@@ -988,82 +1099,113 @@ def run_taxi_read(trips, weather, rep_got, oracle):
         raise AssertionError(f"taxi read -> pipeline: launches "
                              f"{file_launches}")
     no_f32_accumulate(file_launches, "taxi read -> pipeline")
-    return launches, expand.calls, page_values
+    return launches, expand.calls
 
 
-def hybrid_expand_bytes(starts, is_rle, bits, bw: int, n_values: int,
-                        n_bucket: int, nb: int) -> int:
-    """The bytes hybrid_expand must move for a page of `n_values` values:
-    the run fields (17 B) of each run that owns a value, the page bytes
-    that the bit-packed runs' values occupy (the staged buffer's padding
-    and the outputs past the last value read none the page needs) and
-    the n_bucket int32 outputs, each once."""
+def hybrid_expand_bytes(segs, starts, is_rle, bits) -> int:
+    """The bytes hybrid_expand must move for a chunk: each segment's row
+    of the table (56 B), the run fields (17 B) of each run that owns a
+    value, the page bytes that the bit-packed runs' values occupy (the
+    staged padding and the neighbouring pages' bytes are none of them)
+    and the int32 outputs, each once."""
     import numpy as np
-    st = starts.cpu().numpy().astype(np.int64)
-    live = st < n_values
-    ends = np.append(st[1:], n_values).clip(max=n_values)
-    page = 0
-    if bw > 0:
-        packed = live & ~is_rle.cpu().numpy()
-        lo = bits.cpu().numpy()[packed]
-        hi = lo + (ends[packed] - st[packed]) * bw
-        covered = np.zeros(nb, bool)
-        for a, b in zip(lo >> 3, (hi + 7) >> 3):
-            covered[max(a, 0):min(b, nb)] = True
-        page = int(covered.sum())
-    return 17 * int(live.sum()) + page + 4 * n_bucket
+    segs = segs.cpu().numpy()
+    st_all = starts.cpu().numpy().astype(np.int64)
+    rle_all, bits_all = is_rle.cpu().numpy(), bits.cpu().numpy()
+    runs = page = 0
+    for base, n, lo, hi, bw, run_lo, run_hi in segs.tolist():
+        st = st_all[run_lo:run_hi] - base
+        live = st < n
+        runs += int(live.sum())
+        if bw == 0 or not len(st):
+            continue
+        ends = np.append(st[1:], n).clip(max=n)
+        packed = live & ~rle_all[run_lo:run_hi]
+        first = bits_all[run_lo:run_hi][packed]
+        last = first + (ends[packed] - st[packed]) * bw
+        covered = np.zeros(hi - lo, bool)
+        for a, b in zip((first >> 3) - lo, ((last + 7) >> 3) - lo):
+            covered[max(a, 0):min(b, hi - lo)] = True
+        page += int(covered.sum())
+    return 56 * len(segs) + 17 * runs + page + 4 * int(segs[:, 1].sum())
 
 
-def time_hybrid_expand(calls, page_values):
-    """Hold hybrid_expand against its plain version on the first page of
-    each bit width the taxi read decoded (`calls`: the arguments of each
-    call; `page_values`: the values of each page, by its page bytes'
-    address), and time both there; the kernel's line takes the width
-    with the most launches."""
-    import collections
+def time_hybrid_expand(calls):
+    """Hold hybrid_expand_segments against its plain version on the taxi
+    read's largest chunk (`calls`: the arguments of each chunk launch of
+    a read) and time both there, beside its bound; then time the read's
+    first bw = 8 page of 20,000 values as one segment (the kernel, and
+    the per-page entry, which copies its one-row table first)."""
     import torch
     from bodo_tpu_torch.ops import cuda_kernels as CK
 
-    launches_at = collections.Counter(args[5] for args in calls)
-    first = {}
-    for args in calls:
-        first.setdefault(args[5], args)
-    rows = {}
-    for bw in sorted(first):
-        args = first[bw]
-        data, starts, is_rle, vals, bits, _bw, n_bucket = args
-        got = CK.hybrid_expand(*args)
-        want = CK.hybrid_expand_plain(*args)
-        torch.cuda.synchronize()
-        err = int((got.long() - want.long()).abs().max())
-        if not torch.equal(got, want):
-            raise AssertionError(f"hybrid_expand differs from its plain "
-                                 f"version on the taxi read's page bw={bw}")
-        kernel_ms = device_ms(lambda: CK.hybrid_expand(*args))
-        plain_ms = device_ms(lambda: CK.hybrid_expand_plain(*args))
-        kernel_ms_again = device_ms(lambda: CK.hybrid_expand(*args))
-        n_runs = starts.shape[0]
-        n_values = page_values[data.data_ptr()]
-        nbytes = hybrid_expand_bytes(starts, is_rle, bits, bw, n_values,
-                                     n_bucket, data.shape[0])
-        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        print(f"hybrid_expand timing (taxi read page) bw={bw} "
-              f"n_values={n_values} n_bucket={n_bucket} "
-              f"run_table={n_runs} staged_page_bytes={data.shape[0]} "
-              f"launches_at_this_bw={launches_at[bw]}: "
-              f"bit_identical=True kernel_ms={kernel_ms:.6f} (again "
-              f"{kernel_ms_again:.6f}) plain_ms={plain_ms:.6f} "
-              f"bound_ms={bound_ms:.6f} ({nbytes} bytes at "
-              f"{HBM_BYTES_PER_S / 1e12} TB/s); library_ms=null (no single "
-              f"PyTorch call expands parquet hybrid runs)")
-        rows[bw] = (err, kernel_ms, plain_ms, bound_ms)
-    bw = max(launches_at, key=lambda b: (launches_at[b], b))
-    err, kernel_ms, plain_ms, bound_ms = rows[bw]
-    return {"name": "hybrid_expand", "route": "cuda",
-            "source": "bodo_tpu_torch/csrc/hybrid_expand.cu",
-            "replaces": "bodo_tpu/ops/pallas_kernels.py:536",
-            "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}
+    args = max(calls, key=lambda a: (a[-1], a[1].shape[0]))
+    data, segs, starts, is_rle, vals, bits, n_total = args
+    got = CK.hybrid_expand_segments(*args)
+    want = CK.hybrid_expand_segments_plain(*args)
+    torch.cuda.synchronize()
+    err = int((got.long() - want.long()).abs().max())
+    if not torch.equal(got, want):
+        raise AssertionError("hybrid_expand differs from its plain version "
+                             "on the taxi read's largest chunk")
+    kernel_ms = device_ms(lambda: CK.hybrid_expand_segments(*args))
+    plain_ms = device_ms(lambda: CK.hybrid_expand_segments_plain(*args))
+    kernel_ms_again = device_ms(lambda: CK.hybrid_expand_segments(*args))
+    nbytes = hybrid_expand_bytes(segs, starts, is_rle, bits)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    table = segs.cpu().tolist()
+    widths = sorted({row[CK.SEG_BW] for row in table})
+    print(f"hybrid_expand timing (taxi read's largest chunk) "
+          f"segments={len(table)} values={n_total} runs={starts.shape[0]} "
+          f"widths={widths} staged_bytes={data.shape[0]}: "
+          f"bit_identical=True kernel_ms={kernel_ms:.6f} (again "
+          f"{kernel_ms_again:.6f}) plain_ms={plain_ms:.6f} "
+          f"bound_ms={bound_ms:.6f} ({nbytes} bytes at "
+          f"{HBM_BYTES_PER_S / 1e12} TB/s); library_ms=null (no single "
+          f"PyTorch call expands parquet hybrid runs)")
+    row = {"name": "hybrid_expand", "route": "cuda",
+           "source": "bodo_tpu_torch/csrc/hybrid_expand.cu",
+           "replaces": "bodo_tpu/ops/pallas_kernels.py:536",
+           "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
+           "chunk_segments": len(table), "chunk_values": n_total}
+    found = [(a, row) for a in calls for row in a[1].cpu().tolist()
+             if row[CK.SEG_BW] == 8 and row[CK.SEG_N] == 20_000]
+    if not found:
+        print("hybrid_expand timing: no bw=8 page of 20000 values in the "
+              "read; the one-segment time was not measured")
+        return row
+    (data, segs, starts, is_rle, vals, bits, n_total), \
+        (base, n, lo, hi, bw, run_lo, run_hi) = found[0]
+    runs = slice(run_lo, run_hi)
+    page = (data[lo:hi], (starts[runs] - base).contiguous(),
+            is_rle[runs], vals[runs], (bits[runs] - 8 * lo).contiguous(),
+            bw, n)
+    got = CK.hybrid_expand(*page)
+    chunk = CK.hybrid_expand_segments_plain(data, segs, starts, is_rle,
+                                            vals, bits, n_total)
+    if not torch.equal(got, chunk[base:base + n]):
+        raise AssertionError("hybrid_expand's one-segment launch differs "
+                             "from the chunk's plain version")
+    # the kernel on one segment, its table already on the card (the
+    # per-page entry copies its one-row table from the host first, which
+    # syncs the host with the card, so it is timed apart)
+    one = torch.tensor([[0, n, 0, hi - lo, bw, 0, run_hi - run_lo]],
+                       dtype=torch.int64, device=data.device)
+    single = (page[0], one, *page[1:5], n)
+    page_ms = device_ms(lambda: CK.hybrid_expand_segments(*single))
+    page_plain_ms = device_ms(lambda: CK.hybrid_expand_plain(*page))
+    entry_ms = device_ms(lambda: CK.hybrid_expand(*page))
+    page_bytes = hybrid_expand_bytes(one, *page[1:3], page[4])
+    page_bound_ms = page_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"hybrid_expand timing (one page as one segment) bw={bw} "
+          f"n_values={n} runs={run_hi - run_lo}: bit_identical=True "
+          f"kernel_ms={page_ms:.6f} plain_ms={page_plain_ms:.6f} "
+          f"bound_ms={page_bound_ms:.7f} ({page_bytes} bytes); the "
+          f"per-page entry with its table copy {entry_ms:.6f} ms")
+    row.update(page_ms=page_ms, page_plain_ms=page_plain_ms,
+               page_bound_ms=page_bound_ms)
+    return row
 
 
 def run_star():
@@ -1393,9 +1535,9 @@ def main() -> int:
                                                    "groupby_dense"),
                                        "main path")
     lut["launches"] = taxi_launches["lut_gather"]
-    read_launches, expand_calls, page_values = run_taxi_read(*taxi_run)
+    read_launches, expand_calls = run_taxi_read(*taxi_run)
     lut["dict_gather_launches"] = read_launches["dict_gather"]
-    expand = time_hybrid_expand(expand_calls, page_values)
+    expand = time_hybrid_expand(expand_calls)
     expand["launches"] = read_launches["hybrid_expand"]
     del expand_calls
     star_launches, probe_args, star_run = run_star()

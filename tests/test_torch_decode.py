@@ -3,8 +3,9 @@ through read_parquet's device route on the CPU) against the JAX
 package's host read, `arrow_to_table(pq.read_table(f))`, on files that
 pyarrow writes: dictionary, PLAIN and RLE-boolean pages (v1 and v2),
 definition levels with nulls, timestamps (ms, us, ns) and dates, narrow
-and unsigned ints, several pages and row groups, the snappy, gzip, zstd
-and no codecs, a dictionary page that overflows into PLAIN pages
+and unsigned ints, several pages and row groups, dictionary pages whose
+index bit width grows from page to page with nulls, the snappy, gzip,
+zstd and no codecs, a dictionary page that overflows into PLAIN pages
 (numeric: decoded on the device; strings: the host decode), DELTA and
 BYTE_STREAM_SPLIT columns that take the host decode, with the
 host/device split the reference's `_plan_chunk` gives, and column
@@ -191,6 +192,36 @@ def _check_dictionary_overflow(tmp_path, rng):
     assert counts["pages_dict"] >= 3 and counts["pages_plain"] >= 2, counts
 
 
+def _check_growing_bit_width(tmp_path, rng):
+    """Chunks of several dictionary pages whose index bit width grows from
+    page to page as the dictionary grows, with nulls: one chunk decode
+    expands every page's definition levels in one launch and every page's
+    indexes in another, each page at its own width."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    from bodo_tpu_torch.io import device_decode as DD
+    from bodo_tpu_torch.io.parquet import footer_metadata
+    n = 6000
+    new = np.arange(n) // 2  # a new value every other row
+    null = rng.random(n) < 0.2
+    at = pa.table({
+        "x": pa.array(new * 7 - 5000, pa.int64(), mask=null),
+        "s": pa.array([f"v{i:05d}" for i in new], pa.string(),
+                      mask=rng.random(n) < 0.1),
+    })
+    p = str(tmp_path / "growing.parquet")
+    pq.write_table(at, p, data_page_size=1024)
+    bundle = DD.fetch_row_group(p, footer_metadata(p), 0, None)
+    for name in ("x", "s"):
+        rc = bundle.device_cols[name]
+        widths = [pg.bit_width for pg in rc.pages if pg.kind == "dict"]
+        assert len(widths) >= 3 and widths == sorted(widths) and \
+            len(set(widths)) >= 3, (name, widths)
+        assert rc.plan.max_def == 1 and rc.plan.null_count > 0
+    counts = _check(p)
+    assert counts["pages_dict"] >= 6, counts
+
+
 def _check_host_columns(tmp_path, rng):
     import pandas as pd
     n = 3000
@@ -278,6 +309,7 @@ def test_device_decode_matches_reference(reference, tmp_path):
         _check_encodings(tmp_path, rng)
         _check_pages_row_groups_codecs(tmp_path, rng)
         _check_dictionary_overflow(tmp_path, rng)
+        _check_growing_bit_width(tmp_path, rng)
         _check_host_columns(tmp_path, rng)
         _check_empty(tmp_path)
     _check_without_pyarrow(tmp_path, rng)

@@ -157,6 +157,15 @@ def _check_decode_kernels_never_fall_back_off_the_cpu():
         mixed[i] = mixed[i].to("meta")
         with pytest.raises(ValueError, match="CUDA"):
             CK.hybrid_expand(*mixed, 8, 16)
+    segs = torch.tensor([[0, 16, 0, 64, 8, 0, 2]], dtype=torch.int64)
+    chunk = (args[0], segs, *args[1:])
+    for i in range(len(chunk)):
+        mixed = list(chunk)
+        mixed[i] = mixed[i].to("meta")
+        with pytest.raises(ValueError, match="CUDA"):
+            CK.hybrid_expand_segments(*mixed, 16)
+    assert CK.hybrid_expand_segments(*chunk, 16).tolist() == \
+        [5] * 9 + [0] * 7  # all on the CPU: one segment, as one page
     codes = torch.zeros(8, dtype=torch.int32)
     lut = torch.arange(4, dtype=torch.int32)
     for pair in ((codes.to("meta"), lut), (codes, lut.to("meta"))):

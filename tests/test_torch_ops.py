@@ -176,6 +176,17 @@ def _check_compact_is_stable():
     for got, want in ((pa, ra), (pb, rb), (pv, rv)):
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     np.testing.assert_array_equal(pb.numpy()[:pn], np.flatnonzero(mask))
+    # a cut below the live rows: the count is the live rows' (6), the
+    # first 3 of them are kept
+    mask = np.zeros(10, bool)
+    mask[[1, 2, 4, 6, 7, 9]] = True
+    b = np.arange(10, dtype=np.int32) * 3
+    (rb,), rn = RK.compact(jnp.asarray(mask), (jnp.asarray(b),),
+                           capacity_out=3)
+    (pb,), pn = K.compact(_t(mask), (_t(b),), capacity_out=3)
+    assert pn == int(rn) == 6
+    np.testing.assert_array_equal(pb.numpy(), np.asarray(rb))
+    assert pb.tolist() == [3, 6, 12]
 
 
 def _check_segment_agg(op):
