@@ -10,16 +10,38 @@
 // the pre-masked [N, C] value stack against it on the MXU, carrying the
 // [C, K] sums in VMEM from block to block. Hopper has no use for the
 // one-hot: a row adds its values to its own slot. Blocks run in
-// parallel and in no order, so each block keeps a private [C_tile, K]
-// histogram in shared memory:
+// parallel and in no order, so each block keeps private [C_tile, K]
+// histograms in shared memory:
 //
-//   1. zero the histogram;
-//   2. walk the block's rows in a grid-stride loop; a row whose code is
-//      in [0, K) adds, for each column whose mask is set, its value (or
-//      1.0 for a column given no values: a count) with a shared-memory
-//      atomicAdd;
-//   3. after __syncthreads, add every nonzero entry into the global
-//      [K, C] output with a global atomicAdd.
+//   1. zero the histograms;
+//   2. walk the block's rows in a grid-stride loop, kRows consecutive
+//      rows a thread a step: one 16-byte load of codes per 4 rows, one
+//      kRows-byte load per distinct mask and one 16-byte load per 4 rows
+//      of each distinct value column, every load of a step issued before
+//      its first atomic; then each row whose code is in [0, K) adds, for
+//      each column whose mask is set, its value (or 1.0 for a column
+//      given no values: a count) with a shared-memory atomicAdd into its
+//      lane's copy of the histogram;
+//   3. after __syncthreads, sum each cell's copies and add every nonzero
+//      sum into the global [K, C] output with a global atomicAdd.
+//
+// Copies: a block keeps up to 32 copies of its histogram, interleaved
+// word by word, and lane l adds into copy l % copies. At 32 copies every
+// lane of a warp adds into its own bank, so random codes over a few
+// slots no longer serialize the atomics on bank and address conflicts
+// (at K = 64, C = 4 one copy took 0.165 ms on an H100, 32 copies 0.101;
+// PERF.md). Copies are as many as fit 48 KB; at K = 4096 one.
+//
+// The column count of a launch is a template parameter, so the tile's
+// column pointers are kernel parameters read at constant indices and the
+// step's loads sit in registers. Columns that share a mask (a count and a
+// sum of one column) or values (a sum and a mean) are found once per
+// thread by comparing the pointers; a step loads each distinct array once
+// and copies it to the columns that share it, and a column equal to an
+// earlier one in both (the dense plan's present count and a count of a
+// column without nulls) adds nothing and takes the earlier column's
+// sums. Arrays that are views off their alignment (or the ragged end)
+// take scalar loads.
 //
 // The grid is the number of blocks that fit on the SMs at once, so there
 // are few merges. Codes outside [0, K) add nothing, like the one-hot.
@@ -29,17 +51,15 @@
 //
 // The interface is per-column pointers and bool masks, not the
 // reference's stacked, pre-masked [N, C] f32 values: the callers' plans
-// repeat masks (a count and a sum of one column share one) and mostly
-// count (a ones column needs no values at all), so a stack would be
-// written and read at 4 B a row a column. Bound: the codes (4 B a row),
-// each distinct value column (4 B a row) and each distinct mask (1 B a
-// row) read once, the [K, C] output written once; a few additions a
-// row, so device-memory bandwidth bounds it (3.35 TB/s on an H100 SXM).
-// Contention: at K = 64 every thread of a block adds into the same few
-// hundred shared-memory words, yet on an H100 at 2^24 rows the code and
-// mask loads alone take ~80% of the kernel's time (PERF.md), so the
-// next step is several rows a thread in wider loads, not replicated
-// sub-histograms.
+// repeat masks and mostly count (a ones column needs no values at all),
+// so a stack would be written and read at 4 B a row a column. Bound: the
+// codes (4 B a row), each distinct value column (4 B a row) and each
+// distinct mask (1 B a row) read once, the [K, C] output written once; a
+// few additions a row, so device-memory bandwidth bounds it (3.35 TB/s on
+// an H100 SXM). One row a thread a step, through a chain of dependent
+// loads (code, compare, a mask pointer from shared memory, the mask, the
+// value), took 2.8x the bound with every mask unset; 4 rows a thread in
+// wide loads take 1.3x.
 //
 // Contract (checked by the Python wrapper): n >= 1, 1 <= k <= 4096,
 // 1 <= c_total, codes int32 [n], each values pointer f32 [n] or null,
@@ -49,55 +69,222 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kThreads = 512;
+constexpr int kRows = 4;      // consecutive rows a thread takes a step
 constexpr int kMaxCols = 16;  // columns of one launch (kernel parameters)
+// copies of the histogram a block keeps, interleaved word by word
+// (a power of two <= 32): lane l adds into copy l % copies, so at 32
+// copies every lane of a warp adds into its own bank; as many as fit
+// kCopyBytes of shared memory
+constexpr int kMaxCopies = 32;
+constexpr int kCopyBytes = 48 * 1024;
+static_assert(kRows == 4 || kRows == 8, "a mask word is 4 or 8 bytes");
+
+using MaskWord = typename std::conditional<kRows == 8, unsigned long long,
+                                           unsigned>::type;
 
 struct ColTile {
   const float* vals[kMaxCols];   // null: the column is all ones
   const uint8_t* masks[kMaxCols];
 };
 
-__global__ void __launch_bounds__(kThreads)
-groupby_sum_tile(const int32_t* __restrict__ codes, int64_t n, int k,
-                 ColTile tile, int c_tile, float* __restrict__ out,
-                 int c_total, int c0) {
-  extern __shared__ float hist[];  // [c_tile][k]
-  // the tile's pointers, staged in shared memory with static indices so
-  // the row loop indexes them without a local-memory copy of `tile`
-  __shared__ const float* vals[kMaxCols];
-  __shared__ const uint8_t* masks[kMaxCols];
+__device__ __forceinline__ bool aligned(const void* p, int bytes) {
+  return ((uintptr_t)p & (bytes - 1)) == 0;
+}
+
+__device__ __forceinline__ void load_codes(const int32_t* __restrict__ p,
+                                           int64_t i, int64_t n, bool vec,
+                                           int (&c)[kRows]) {
+  if (vec && i + kRows <= n) {
 #pragma unroll
-  for (int c = 0; c < kMaxCols; ++c) {
-    if (threadIdx.x == c) {
-      vals[c] = tile.vals[c];
-      masks[c] = tile.masks[c];
+    for (int q = 0; q < kRows / 4; ++q) {
+      const int4 v = __ldcs(reinterpret_cast<const int4*>(p + i) + q);
+      c[4 * q] = v.x;
+      c[4 * q + 1] = v.y;
+      c[4 * q + 2] = v.z;
+      c[4 * q + 3] = v.w;
     }
-  }
-  const int cells = c_tile * k;
-  for (int j = threadIdx.x; j < cells; j += blockDim.x) hist[j] = 0.f;
-  __syncthreads();
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    const int code = codes[i];
-    if ((unsigned)code >= (unsigned)k) continue;
-    for (int c = 0; c < c_tile; ++c) {
-      if (!masks[c][i]) continue;
-      const float v = vals[c] ? vals[c][i] : 1.f;
-      atomicAdd(&hist[c * k + code], v);
-    }
-  }
-  __syncthreads();
-  for (int j = threadIdx.x; j < cells; j += blockDim.x) {
-    const float v = hist[j];
-    if (v != 0.f) {
-      const int c = j / k;
-      atomicAdd(&out[(int64_t)(j - c * k) * c_total + c0 + c], v);
-    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) c[r] = i + r < n ? __ldcs(p + i + r) : -1;
   }
 }
+
+__device__ __forceinline__ MaskWord load_mask(const uint8_t* __restrict__ p,
+                                              int64_t i, int64_t n,
+                                              bool vec) {
+  if (vec && i + kRows <= n)
+    return __ldcs(reinterpret_cast<const MaskWord*>(p + i));
+  MaskWord m = 0;
+#pragma unroll
+  for (int r = 0; r < kRows; ++r)
+    if (i + r < n) m |= (MaskWord)p[i + r] << (8 * r);
+  return m;
+}
+
+__device__ __forceinline__ void load_vals(const float* __restrict__ p,
+                                          int64_t i, int64_t n, bool vec,
+                                          float (&v)[kRows]) {
+  if (vec && i + kRows <= n) {
+#pragma unroll
+    for (int q = 0; q < kRows / 4; ++q) {
+      const float4 x = __ldcs(reinterpret_cast<const float4*>(p + i) + q);
+      v[4 * q] = x.x;
+      v[4 * q + 1] = x.y;
+      v[4 * q + 2] = x.z;
+      v[4 * q + 3] = x.w;
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) v[r] = i + r < n ? __ldcs(p + i + r) : 0.f;
+  }
+}
+
+template <int C>
+__global__ void __launch_bounds__(kThreads)
+groupby_sum_tile(const int32_t* __restrict__ codes, int64_t n, int k,
+                 ColTile tile, int copies, float* __restrict__ out,
+                 int c_total, int c0) {
+  // [C][k][copies]: copy j of cell (c, code) at (c * k + code) * copies + j
+  extern __shared__ float hist[];
+  for (int j = threadIdx.x; j < C * k * copies; j += blockDim.x)
+    hist[j] = 0.f;
+  float* mine = hist + (threadIdx.x & (copies - 1));
+  // 4-bit field c of msrc / vsrc / dsrc: the first column of the tile
+  // with column c's mask / values / both (a column equal to an earlier
+  // one adds nothing and takes that column's sums); bit c of mvec / vvec:
+  // c's mask / values aligned for the wide loads
+  uint64_t msrc = 0, vsrc = 0, dsrc = 0;
+  unsigned mvec = 0, vvec = 0;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    int m = c, v = c, d = c;
+#pragma unroll
+    for (int e = c - 1; e >= 0; --e) {
+      if (tile.masks[e] == tile.masks[c]) m = e;
+      if (tile.vals[e] == tile.vals[c]) v = e;
+      if (tile.masks[e] == tile.masks[c] && tile.vals[e] == tile.vals[c])
+        d = e;
+    }
+    msrc |= (uint64_t)m << (4 * c);
+    vsrc |= (uint64_t)v << (4 * c);
+    dsrc |= (uint64_t)d << (4 * c);
+    mvec |= (unsigned)aligned(tile.masks[c], sizeof(MaskWord)) << c;
+    vvec |= (unsigned)aligned(tile.vals[c], 16) << c;
+  }
+  const bool cvec = aligned(codes, 16);
+  __syncthreads();
+
+  const int64_t step = (int64_t)gridDim.x * blockDim.x * kRows;
+  for (int64_t i = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) * kRows;
+       i < n; i += step) {
+    int code[kRows];
+    MaskWord mw[C];
+    float v[C][kRows];
+    load_codes(codes, i, n, cvec, code);
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      mw[c] = 0;
+      if (((msrc >> (4 * c)) & 15) == c)
+        mw[c] = load_mask(tile.masks[c], i, n, (mvec >> c) & 1);
+    }
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) v[c][r] = 1.f;
+      if (tile.vals[c] && ((vsrc >> (4 * c)) & 15) == c)
+        load_vals(tile.vals[c], i, n, (vvec >> c) & 1, v[c]);
+    }
+#pragma unroll
+    for (int c = 1; c < C; ++c) {
+      const int m = (msrc >> (4 * c)) & 15, vs = (vsrc >> (4 * c)) & 15;
+#pragma unroll
+      for (int e = 0; e < c; ++e) {
+        if (m == e) mw[c] = mw[e];
+        if (vs == e) {
+#pragma unroll
+          for (int r = 0; r < kRows; ++r) v[c][r] = v[e][r];
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      if ((unsigned)code[r] >= (unsigned)k) continue;
+#pragma unroll
+      for (int c = 0; c < C; ++c)
+        if (((dsrc >> (4 * c)) & 15) == c && ((mw[c] >> (8 * r)) & 0xffu))
+          atomicAdd(&mine[(c * k + code[r]) * copies], v[c][r]);
+    }
+  }
+  __syncthreads();
+  // one copy: a thread per cell; else a warp per cell, lane j adding
+  // copies j, j + 32, ...
+  const int lane = threadIdx.x % 32;
+  const bool by_warp = copies > 1;
+  const int first = by_warp ? threadIdx.x / 32 : threadIdx.x;
+  const int cell_step = by_warp ? blockDim.x / 32 : blockDim.x;
+  for (int j = first; j < C * k; j += cell_step) {
+    const int c = j / k;
+    const int src = (int)((dsrc >> (4 * c)) & 15) * k + (j - c * k);
+    float x = 0.f;
+    if (by_warp) {
+      for (int r = lane; r < copies; r += 32) x += hist[src * copies + r];
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        x += __shfl_xor_sync(0xffffffffu, x, o);
+    } else {
+      x = hist[src];
+    }
+    if ((!by_warp || lane == 0) && x != 0.f)
+      atomicAdd(&out[(int64_t)(j - c * k) * c_total + c0 + c], x);
+  }
+}
+
+// Launch the kernel for C columns: the grid the SMs hold at once, with
+// as many histogram copies as kCopyBytes holds (one if only one fits the
+// block's shared memory).
+template <int C>
+cudaError_t launch_tile(const int32_t* codes, int64_t n, int k,
+                        const ColTile& tile, float* out, int c_total, int c0,
+                        int sms, cudaStream_t s) {
+  const int cells = C * k;
+  int copies = kMaxCopies;
+  while (copies > 1 &&
+         (size_t)copies * cells * sizeof(float) > (size_t)kCopyBytes)
+    copies /= 2;
+  const size_t smem = (size_t)copies * cells * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      groupby_sum_tile<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, groupby_sum_tile<C>, kThreads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) per_sm = 1;
+  const int64_t rows_a_block = (int64_t)kThreads * kRows;
+  const int64_t want = (n + rows_a_block - 1) / rows_a_block;
+  const int64_t fit = (int64_t)sms * per_sm;
+  const unsigned grid = (unsigned)(want < fit ? want : fit);
+  groupby_sum_tile<C><<<grid, kThreads, smem, s>>>(
+      codes, n, k, tile, copies, out, c_total, c0);
+  return cudaGetLastError();
+}
+
+using TileLauncher = cudaError_t (*)(const int32_t*, int64_t, int,
+                                     const ColTile&, float*, int, int, int,
+                                     cudaStream_t);
+
+// kLaunchers[c - 1] launches c columns
+const TileLauncher kLaunchers[kMaxCols] = {
+    launch_tile<1>,  launch_tile<2>,  launch_tile<3>,  launch_tile<4>,
+    launch_tile<5>,  launch_tile<6>,  launch_tile<7>,  launch_tile<8>,
+    launch_tile<9>,  launch_tile<10>, launch_tile<11>, launch_tile<12>,
+    launch_tile<13>, launch_tile<14>, launch_tile<15>, launch_tile<16>};
 
 }  // namespace
 
@@ -112,8 +299,6 @@ static int tile_cols(int k, int c_total) {
                                  cudaDevAttrMaxSharedMemoryPerBlockOptin,
                                  dev);
   if (err != cudaSuccess) return -(int)err;
-  // the kernel's static shared memory (the staged pointers) counts too
-  smem_max -= 2 * kMaxCols * (int)sizeof(void*);
   int c_tile = smem_max / (k * (int)sizeof(float));
   if (c_tile > kMaxCols) c_tile = kMaxCols;
   if (c_tile > c_total) c_tile = c_total;
@@ -140,20 +325,6 @@ extern "C" int groupby_sum_launch(const void* codes, int64_t n, int k,
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
-  const int per_col = k * (int)sizeof(float);
-  const size_t smem = (size_t)c_tile * per_col;
-  err = cudaFuncSetAttribute(groupby_sum_tile,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, groupby_sum_tile, kThreads, smem);
-  if (err != cudaSuccess) return (int)err;
-  if (per_sm < 1) per_sm = 1;
-  const int64_t want = (n + kThreads - 1) / kThreads;
-  const int64_t fit = (int64_t)sms * per_sm;
-  const unsigned grid = (unsigned)(want < fit ? want : fit);
   cudaStream_t s = (cudaStream_t)stream;
   for (int c0 = 0; c0 < c_total; c0 += c_tile) {
     const int width = c_total - c0 < c_tile ? c_total - c0 : c_tile;
@@ -162,9 +333,8 @@ extern "C" int groupby_sum_launch(const void* codes, int64_t n, int k,
       tile.vals[c] = (const float*)vals[c0 + c];
       tile.masks[c] = (const uint8_t*)masks[c0 + c];
     }
-    groupby_sum_tile<<<grid, kThreads, (size_t)width * per_col, s>>>(
-        (const int32_t*)codes, n, k, tile, width, (float*)out, c_total, c0);
-    err = cudaGetLastError();
+    err = kLaunchers[width - 1]((const int32_t*)codes, n, k, tile,
+                                         (float*)out, c_total, c0, sms, s);
     if (err != cudaSuccess) return (int)err;
   }
   return 0;

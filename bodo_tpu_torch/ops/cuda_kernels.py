@@ -37,6 +37,7 @@ SOURCES = {"lut_gather": "lut_gather.cu", "hash_probe": "hash_probe.cu",
            "hybrid_expand": "hybrid_expand.cu",
            "groupby_sum": "groupby_sum.cu"}
 _P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+_U32 = ctypes.c_uint32
 # kernel name -> (C entry point, ctypes argument types); pointers and the
 # stream are c_void_p so ctypes passes them at full width
 _ENTRIES = {
@@ -46,9 +47,9 @@ _ENTRIES = {
     "hash_probe": ("hash_probe_launch",
                    [_P, _P, _P, _P, _P, _P, _P, _P,
                     _I64, _I64, _I, _I64, _I, _P]),
-    # dest, ok, rank, counts, tile counts, n, k, tile, stream
+    # dest, ok, rank, counts, look-back state, n, k, generation, stream
     "partition_rank": ("partition_rank_launch",
-                       [_P, _P, _P, _P, _P, _I64, _I, _I, _P]),
+                       [_P, _P, _P, _P, _P, _I64, _I, _U32, _P]),
     # pk, splitters, out, n, n_spl, stream
     "range_partition": ("range_partition_launch",
                         [_P, _P, _P, _I64, _I, _P]),
@@ -312,8 +313,15 @@ def hash_probe(build_codes: torch.Tensor, owner: torch.Tensor,
 # (route partition_rank, :509, reached from parallel/shuffle.bucket_rows)
 # ---------------------------------------------------------------------------
 
-# the kernel keeps a running count per bucket in 16 KB of shared memory
+# the kernel's K > 8 form keeps 20 B of shared memory a bucket
 PARTITION_MAX_BUCKETS = 4096
+_GEN_LIMIT = 256  # the kernel's packed words keep 8 bits of generation
+
+# (device index, stream) -> [look-back state, last generation]: the kernel
+# claims tiles from a counter in the state and publishes each tile's
+# counts there, tagged with the call's generation, so no call clears it;
+# calls on one stream run in order and never share words
+_rank_states: Dict[tuple, list] = {}
 
 
 def partition_rank_plain(dest: torch.Tensor, ok: torch.Tensor,
@@ -369,18 +377,36 @@ def partition_rank(dest: torch.Tensor, ok: torch.Tensor, num_buckets: int):
     if n >= 2 ** 31:
         raise ValueError(f"partition_rank: {n} rows overflow int32 ranks")
     rank = torch.empty(n, dtype=torch.int32, device=dev)
-    counts = torch.zeros(k, dtype=torch.int32, device=dev)
-    if n:
-        # a tile's rows per warp: at least twice the buckets, so the
-        # per-tile counts stay small next to the rows
-        tile = max(2048, -(-2 * k // 256) * 256)
-        n_tiles = -(-n // tile)
-        tile_counts = torch.empty(k * n_tiles, dtype=torch.int32,
-                                  device=dev)
-        _launch("partition_rank", dev, dest.data_ptr(), ok.data_ptr(),
-                rank.data_ptr(), counts.data_ptr(), tile_counts.data_ptr(),
-                n, k, tile)
+    if not n:
+        return rank, torch.zeros(k, dtype=torch.int32, device=dev)
+    counts = torch.empty(k, dtype=torch.int32, device=dev)  # all written
+    state, gen = _partition_rank_state(dev, n, k)
+    _launch("partition_rank", dev, dest.data_ptr(), ok.data_ptr(),
+            rank.data_ptr(), counts.data_ptr(), state.data_ptr(), n, k, gen)
     return rank, counts
+
+
+def _partition_rank_state(dev: torch.device, n: int, k: int):
+    """The look-back state of the current stream of `dev`, with at least
+    the words a call at (n, k) needs, and the call's new generation (1 to
+    255). The state is zeroed when it is allocated (grown to a power of
+    two) and when the generation wraps: once in 255 calls."""
+    fn = _lib("partition_rank").partition_rank_state_words
+    fn.argtypes = [_I64, _I]
+    fn.restype = ctypes.c_int64
+    words = fn(n, k)
+    with torch.cuda.device(dev), _lock:
+        key = (dev.index, torch.cuda.current_stream().cuda_stream)
+        entry = _rank_states.get(key)
+        if entry is None or entry[0].numel() < words:
+            size = 1 << (words - 1).bit_length()
+            entry = _rank_states[key] = [
+                torch.zeros(size, dtype=torch.int64, device=dev), 0]
+        elif entry[1] + 1 >= _GEN_LIMIT:
+            entry[0].zero_()
+            entry[1] = 0
+        entry[1] += 1
+        return entry[0], entry[1]
 
 
 # ---------------------------------------------------------------------------

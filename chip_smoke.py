@@ -10,8 +10,10 @@ per source, all started together), then:
      bit-identical: lut_gather for LUTs of 1 to 2^22 slots (every size
      the dense join admits), hash_probe for tables of 16 to 2^24 slots,
      2 or 4 code columns, hit, miss and not-ok rows and an unresolved
-     walk; partition_rank for N in {1, 1000, 5,000,000} rows and K in
-     {1, 4, 4096} buckets; range_partition at N = 5,000,000 for 1, 3
+     walk; partition_rank for N in {1, 31, 1000, 4099, 5,000,000,
+     5,000,067} rows and K in {1, 4, 32, 33, 4096} buckets, views at odd
+     offsets, no row ok, one bucket, two calls back to back;
+     range_partition at N = 5,000,000 for 1, 3
      and 4095 splitters, with keys whose top bit is set, the padding
      key, splitters equal to keys or duplicated, and an all-padding
      shard's splitters; hybrid_expand one page at a time on RLE-only,
@@ -20,11 +22,12 @@ per source, all started together), then:
      runs, over the whole padded output, and a chunk at a time on random
      chunks of 1 to 200 segments at widths 0, 1, 2, 8, 15-18 and 24, one
      staged past 256 MiB (bit offsets past 2^31); groupby_sum at N in
-     {0, 1, 1000, 2^24} rows, K in {1, 64, 4096} slots and C in {1, 4,
-     16} columns (K = 4096, C = 16 in two column tiles) with masked rows
-     and codes outside [0, K), the kernel and its plain version each
-     against the float64 sums (counts exact, sums within 1e-5 * sum(|x|)
-     per slot); and times
+     {0, 1, 1000, 4099, 1,000,003, 2^24} rows, K in {1, 64, 4096} slots
+     and C in {1, 4, 16} columns (K = 4096, C = 16 in two column tiles)
+     with masked rows and codes outside [0, K), then views at odd
+     offsets, shared masks and values, two calls back to back, the
+     kernel and its plain version each against the float64 sums (counts
+     exact, sums within 1e-5 * sum(|x|) per slot); and times
      lut_gather, its plain version and the PyTorch call that computes
      the same function;
   2. drives the main paths, each with the route and launch counts set to
@@ -61,9 +64,9 @@ per source, all started together), then:
        (hash_probe on each shard), the two-phase sharded groupby
        (partition_rank in its shuffle), the sample sort (range_partition,
        then partition_rank), against the numpy oracle and row for row
-       against the REP run's result; partition_rank and range_partition
-       are then held against their plain versions and timed on the
-       inputs a run gave them;
+       against the REP run's result; partition_rank is then held against
+       its plain version and timed on each of the run's calls, and
+       range_partition on its first;
      - the star join with shard=True on 4 shards, on the REP phase's
        tables: the shuffle join (partition_rank on the 20M-row fact
        table's shards), against the numpy oracle;
@@ -363,28 +366,65 @@ def time_hash_probe(args):
             "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}
 
 
+def _hold_partition_rank(dest, ok, k: int, got, label: str) -> None:
+    """partition_rank's result `got` bit-identical to its plain version."""
+    import torch
+    from bodo_tpu_torch.ops import cuda_kernels as CK
+    want_rank, want_counts = CK.partition_rank_plain(dest, ok, k)
+    torch.cuda.synchronize()
+    same = (bool(torch.equal(got[0], want_rank))
+            and bool(torch.equal(got[1], want_counts)))
+    print(f"partition_rank {label} N={dest.shape[0]} K={k}: "
+          f"bit_identical={same} ok_rows={int(ok.sum())}")
+    if not same:
+        raise AssertionError(f"partition_rank differs from its plain "
+                             f"version: {label} N={dest.shape[0]} K={k}")
+
+
 def check_partition_rank(dev):
     """Phase 1 for partition_rank: bit-identity with its plain version
-    for every (N, K) case, some rows not ok."""
+    for N in {1, 31, 1000, 4099, 5,000,000, 5,000,067} rows (tails of the
+    4-row loads and of the tiles) and K in {1, 4, 32, 33, 4096} (both
+    forms of the in-warp rank), buckets outside [0, K) and rows not ok;
+    views at odd element offsets; no row ok; every row in one bucket;
+    two calls back to back, which share the look-back state."""
     import torch
     from bodo_tpu_torch.ops import cuda_kernels as CK
 
     g = torch.Generator(device=dev).manual_seed(SEED + 3)
-    for n in (1, 1000, SHARD_ROWS):
-        for k in (1, SHARDS, CK.PARTITION_MAX_BUCKETS):
-            dest = torch.randint(0, k, (n,), generator=g, device=dev,
-                                 dtype=torch.int32)
-            ok = torch.rand(n, generator=g, device=dev) < 0.9
-            rank, counts = CK.partition_rank(dest, ok, k)
-            want_rank, want_counts = CK.partition_rank_plain(dest, ok, k)
-            torch.cuda.synchronize()
-            same = (bool(torch.equal(rank, want_rank))
-                    and bool(torch.equal(counts, want_counts)))
-            print(f"partition_rank N={n} K={k}: bit_identical={same} "
-                  f"ok_rows={int(ok.sum())}")
-            if not same:
-                raise AssertionError(f"partition_rank differs from its "
-                                     f"plain version at N={n} K={k}")
+
+    def case(n: int, k: int, live: float = 0.9):
+        dest = torch.randint(-1, k + 1, (n,), generator=g, device=dev,
+                             dtype=torch.int32)
+        ok = torch.rand(n, generator=g, device=dev) < live
+        return dest, ok
+
+    ks = (1, SHARDS, 32, 33, CK.PARTITION_MAX_BUCKETS)
+    for n in (1, 31, 1000, 4099, SHARD_ROWS, SHARD_ROWS + 67):
+        for k in ks:
+            dest, ok = case(n, k)
+            _hold_partition_rank(dest, ok, k, CK.partition_rank(dest, ok, k),
+                                 "random")
+    n = SHARD_ROWS + 67
+    for k in (SHARDS, 33):
+        dest, ok = case(n + 3, k)
+        d, o = dest[1:n + 1], ok[3:n + 3]  # 4 and 3 bytes off alignment
+        _hold_partition_rank(d, o, k, CK.partition_rank(d, o, k),
+                             "views at element offsets 1 and 3")
+        dest, ok = case(n, k, live=0.0)
+        _hold_partition_rank(dest, ok, k, CK.partition_rank(dest, ok, k),
+                             "no row ok")
+    for k in ks:
+        dest = torch.full((n,), k - 1, device=dev, dtype=torch.int32)
+        ok = torch.ones(n, device=dev, dtype=torch.bool)
+        _hold_partition_rank(dest, ok, k, CK.partition_rank(dest, ok, k),
+                             "every row in one bucket")
+    for k in (SHARDS, 33, CK.PARTITION_MAX_BUCKETS):
+        a, b = case(SHARD_ROWS, k), case(SHARD_ROWS - 4099, k, live=0.5)
+        got_a = CK.partition_rank(*a, k)  # no sync between the two
+        got_b = CK.partition_rank(*b, k)
+        _hold_partition_rank(*a, k, got_a, "back to back, first")
+        _hold_partition_rank(*b, k, got_b, "back to back, second")
 
 
 def check_range_partition(dev):
@@ -442,30 +482,47 @@ class _Capture:
         setattr(self.ck, self.name, self.orig)
 
 
-def time_partition_rank(args):
-    """Hold partition_rank against its plain version on the inputs the
-    1D taxi path gave it, and time both there."""
+def time_partition_rank(calls):
+    """Hold partition_rank against its plain version on each call the 1D
+    taxi path made, and time the kernel on each; the plain version on the
+    largest. Returns the largest call's row, with the whole path's
+    launches x kernel ms beside launches x bound ms."""
     import torch
     from bodo_tpu_torch.ops import cuda_kernels as CK
+    path_ms = path_bound_ms = 0.0
+    err = 0
+    for j, (dest, ok, k) in enumerate(calls):
+        got = CK.partition_rank(dest, ok, k)
+        want = CK.partition_rank_plain(dest, ok, k)
+        torch.cuda.synchronize()
+        err = max(err, int((got[0].long() - want[0].long()).abs().max()),
+                  int((got[1].long() - want[1].long()).abs().max()))
+        same = (bool(torch.equal(got[0], want[0]))
+                and bool(torch.equal(got[1], want[1])))
+        n = dest.shape[0]
+        ms = device_ms(lambda: CK.partition_rank(dest, ok, k))
+        nbytes = 9 * n + 4 * k  # dest and ok read, rank written; counts
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        path_ms += ms
+        path_bound_ms += bound_ms
+        print(f"partition_rank (1D taxi path's call {j + 1} of "
+              f"{len(calls)}) N={n} K={k} ok_rows={int(ok.sum())}: "
+              f"bit_identical={same} kernel_ms={ms:.6f} "
+              f"bound_ms={bound_ms:.6f} ({bound_ms / ms:.1%} of the bound)")
+        if not same:
+            raise AssertionError(f"partition_rank differs from its plain "
+                                 f"version on the 1D taxi path's call "
+                                 f"{j + 1}")
+    print(f"partition_rank on the 1D taxi path: {len(calls)} launches, "
+          f"sum of kernel ms {path_ms:.6f} against sum of bound ms "
+          f"{path_bound_ms:.6f}")
+    args = max(calls, key=lambda c: c[0].shape[0])
     dest, ok, k = args
-    rank, counts = CK.partition_rank(*args)
-    want_rank, want_counts = CK.partition_rank_plain(*args)
-    torch.cuda.synchronize()
-    err = max(int((rank.long() - want_rank.long()).abs().max()),
-              int((counts.long() - want_counts.long()).abs().max()))
-    same = (bool(torch.equal(rank, want_rank))
-            and bool(torch.equal(counts, want_counts)))
-    n = dest.shape[0]
-    print(f"partition_rank (1D taxi path's call) N={n} K={k} "
-          f"ok_rows={int(ok.sum())}: bit_identical={same} "
-          f"max_abs_diff={err}")
-    if not same:
-        raise AssertionError("partition_rank differs from its plain version "
-                             "on the 1D taxi path's inputs")
     kernel_ms = device_ms(lambda: CK.partition_rank(*args))
     plain_ms = device_ms(lambda: CK.partition_rank_plain(*args))
     kernel_ms_again = device_ms(lambda: CK.partition_rank(*args))
-    nbytes = 9 * n + 4 * k  # dest and ok read, rank written; counts
+    n = dest.shape[0]
+    nbytes = 9 * n + 4 * k
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     print(f"partition_rank timing N={n} K={k}: kernel_ms={kernel_ms:.6f} "
           f"(again {kernel_ms_again:.6f}) plain_ms={plain_ms:.6f} "
@@ -476,7 +533,8 @@ def time_partition_rank(args):
             "source": "bodo_tpu_torch/csrc/partition_rank.cu",
             "replaces": "bodo_tpu/ops/pallas_kernels.py:432",
             "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}
+            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
+            "path_ms": path_ms, "path_bound_ms": path_bound_ms}
 
 
 def time_range_partition(args):
@@ -751,16 +809,19 @@ def hold_groupby_sum(got, s64, a64, cols, label: str) -> float:
 
 
 def check_groupby_sum(dev):
-    """Phase 1 for groupby_sum: at N in {0, 1, 1000, 2^24} rows, K in {1,
-    64, 4096} slots and C in {1, 4, 16} columns, with masked rows and
-    codes outside [0, K), the kernel and its plain version each against
-    the float64 sums (counts exact, sums within SUM_TOL * sum(|x|) per
-    slot); K = 4096 with C = 16 takes more than one column tile."""
+    """Phase 1 for groupby_sum: at N in {0, 1, 1000, 4099, 1,000,003,
+    2^24} rows (tails of the 4-row loads), K in {1, 64, 4096} slots and C
+    in {1, 4, 16} columns, with masked rows and codes outside [0, K), the
+    kernel and its plain version each against the float64 sums (counts
+    exact, sums within SUM_TOL * sum(|x|) per slot); K = 4096 with C = 16
+    takes more than one column tile. Then codes, masks and values as
+    views at odd element offsets, columns that share masks and values,
+    and two calls back to back, each against the float64 sums."""
     import torch
     from bodo_tpu_torch.ops import cuda_kernels as CK
 
     g = torch.Generator(device=dev).manual_seed(SEED + 6)
-    for n in (0, 1, 1000, F32_ROWS):
+    for n in (0, 1, 1000, 4099, 1_000_003, F32_ROWS):
         for k in (1, 64, CK.MAX_MATMUL_SLOTS):
             for c in (1, 4, 16):
                 codes, cols, masks = _groupby_sum_case(g, dev, n, k, c)
@@ -783,6 +844,38 @@ def check_groupby_sum(dev):
                     raise AssertionError("groupby_sum: K=4096 C=16 took "
                                          "one column tile")
                 del codes, cols, masks, got, plain, s64, a64
+    n = 1_000_003
+    for k, c in ((64, 4), (CK.MAX_MATMUL_SLOTS, 16)):
+        codes, cols, masks = _groupby_sum_case(g, dev, n + 3, k, c)
+        # views 1, 2 and 3 elements off the 16-byte alignment
+        views = (codes[1:n + 1],
+                 [None if v is None else v[2:n + 2] for v in cols],
+                 [m[3:n + 3] for m in masks])
+        # the dense plan's sharing: column 1 counts what column 2 sums,
+        # column 3 repeats column 0, column 4 sums column 2's values
+        # under column 0's mask
+        z, m0, m1 = cols[1][:n], masks[0][:n], masks[1][:n]
+        shared = (codes[:n], [None, None, z, None, z], [m0, m1, m1, m0, m0])
+        for label, (cd, cl, mk) in (("views at element offsets 1-3", views),
+                                    ("shared masks and values", shared)):
+            got = CK.groupby_sum(cd, cl, mk, k)
+            s64, a64 = groupby_sums64(cd, cl, mk, k)
+            torch.cuda.synchronize()
+            worst = hold_groupby_sum(got, s64, a64, cl,
+                                     f"{label} N={n} K={k}")
+            print(f"groupby_sum {label} N={n} K={k} C={len(mk)}: counts "
+                  f"exact, max |err| / ({SUM_TOL_TEXT}) {worst:.6f}")
+        first = CK.groupby_sum(*views, k)  # no sync between the two
+        second = CK.groupby_sum(*views, k)
+        s64, a64 = groupby_sums64(*views, k)
+        torch.cuda.synchronize()
+        for j, got in enumerate((first, second)):
+            worst = hold_groupby_sum(got, s64, a64, views[1],
+                                     f"back to back {j + 1} N={n} K={k}")
+            print(f"groupby_sum back to back, call {j + 1}, N={n} K={k} "
+                  f"C={c}: counts exact, max |err| / ({SUM_TOL_TEXT}) "
+                  f"{worst:.6f}")
+        del codes, cols, masks, views, shared, first, second, z, m0, m1
 
 
 def groupby_sum_bytes(codes, cols, masks, k: int) -> int:
@@ -1446,8 +1539,8 @@ def run_taxi_1d(trips, weather, rep_got, oracle):
     SHARDS shards, with the counts reset just before and read just
     after; check it against the numpy oracle and, row for row, against
     the REP run's result. Returns (kernel launch counts of that run, the
-    arguments of the first partition_rank and range_partition launches
-    of a later run, for timing)."""
+    arguments of every partition_rank call and of the first
+    range_partition call of a later run, for timing)."""
     import torch
     from bodo_tpu_torch import relational as R
     from bodo_tpu_torch.ops import cuda_kernels as CK
@@ -1492,7 +1585,11 @@ def run_taxi_1d(trips, weather, rep_got, oracle):
     with _Capture("partition_rank") as pr, \
             _Capture("range_partition") as rp:
         run()
-    return launches, pr.calls[0], rp.calls[0]
+    if len(pr.calls) != launches["partition_rank"]:
+        raise AssertionError(f"main path 1D: {len(pr.calls)} partition_rank "
+                             f"calls in a later run, "
+                             f"{launches['partition_rank']} in the first")
+    return launches, pr.calls, rp.calls[0]
 
 
 def main() -> int:
@@ -1544,13 +1641,13 @@ def main() -> int:
     probe = time_hash_probe(probe_args)
     probe["launches"] = star_launches["hash_probe"]
     del probe_args
-    oned_launches, rank_args, range_args = run_taxi_1d(*taxi_run)
+    oned_launches, rank_calls, range_args = run_taxi_1d(*taxi_run)
     del taxi_run
-    rank = time_partition_rank(rank_args)
+    rank = time_partition_rank(rank_calls)
     rank["launches"] = oned_launches["partition_rank"]
     part = time_range_partition(range_args)
     part["launches"] = oned_launches["range_partition"]
-    del rank_args, range_args
+    del rank_calls, range_args
     run_star_1d(*star_run)
     del star_run
     dense_launches, sparse_launches, acc_args = run_f32_groupby()

@@ -1,11 +1,13 @@
 """The `partition_rank` and `range_partition` CUDA kernels against their
-plain versions on the card, bit for bit: partition_rank for N in {1,
-1000, 5,000,000} rows and K in {1, 4, 4096} buckets with rows not ok,
-range_partition at N = 5,000,000 for 1, 3 and 4095 splitters with keys
-whose top bit is set, the padding key, splitters equal to keys and
-duplicated, and an all-padding shard's splitters. Marked `cuda`: skips
-without a GPU. It imports nothing of the test harness, so on the card's
-machine it runs with
+plain versions on the card, bit for bit: partition_rank for N in {1, 31,
+1000, 4099, 5,000,000, 5,000,067} rows and K in {1, 4, 32, 33, 4096}
+buckets with rows not ok and buckets outside [0, K), views at odd element
+offsets, no row ok, every row in one bucket and two calls back to back
+(they share the kernel's look-back state); range_partition at N =
+5,000,000 for 1, 3 and 4095 splitters with keys whose top bit is set, the
+padding key, splitters equal to keys and duplicated, and an all-padding
+shard's splitters. Marked `cuda`: skips without a GPU. It imports nothing
+of the test harness, so on the card's machine it runs with
 
     python -m pytest --noconftest -m cuda tests/test_torch_gpu_partition.py
 """
@@ -24,17 +26,45 @@ def test_partition_kernels_match_plain_on_gpu():
     from bodo_tpu_torch.ops import cuda_kernels as CK
     r = np.random.default_rng(0)
     dev = torch.device("cuda")
-    for n in (1, 1000, 5_000_000):
-        for k in (1, 4, 4096):
-            dest = torch.from_numpy(r.integers(0, k, n).astype(np.int32))
-            ok = torch.from_numpy(r.random(n) < 0.9)
-            want = CK.partition_rank_plain(dest, ok, k)
-            before = CK.launches["partition_rank"]
-            got = CK.partition_rank(dest.to(dev), ok.to(dev), k)
-            torch.cuda.synchronize()
-            assert CK.launches["partition_rank"] == before + 1
-            assert torch.equal(got[0].cpu(), want[0]), (n, k)
-            assert torch.equal(got[1].cpu(), want[1]), (n, k)
+
+    def case(n, k, live=0.9, pad=0):
+        dest = torch.from_numpy(r.integers(-1, k + 1, n + pad)
+                                .astype(np.int32))
+        return dest, torch.from_numpy(r.random(n + pad) < live)
+
+    def launch(dest, ok, k):
+        before = CK.launches["partition_rank"]
+        got = CK.partition_rank(dest.to(dev), ok.to(dev), k)
+        assert CK.launches["partition_rank"] == before + 1
+        return got
+
+    def hold(got, dest, ok, k):
+        want = CK.partition_rank_plain(dest, ok, k)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0].cpu(), want[0]), (dest.shape[0], k)
+        assert torch.equal(got[1].cpu(), want[1]), (dest.shape[0], k)
+
+    ks = (1, 4, 32, 33, 4096)
+    for n in (1, 31, 1000, 4099, 5_000_000, 5_000_067):
+        for k in ks:
+            dest, ok = case(n, k)
+            hold(launch(dest, ok, k), dest, ok, k)
+    n = 5_000_067
+    for k in (4, 33):
+        dest, ok = case(n, k, pad=3)
+        d, o = dest.to(dev)[1:n + 1], ok.to(dev)[3:n + 3]  # off alignment
+        hold(CK.partition_rank(d, o, k), d.cpu(), o.cpu(), k)
+        dest, ok = case(n, k, live=0.0)
+        hold(launch(dest, ok, k), dest, ok, k)
+    for k in ks:
+        dest = torch.full((n,), k - 1, dtype=torch.int32)
+        ok = torch.ones(n, dtype=torch.bool)
+        hold(launch(dest, ok, k), dest, ok, k)
+    for k in (4, 33, 4096):
+        a, b = case(5_000_000, k), case(5_000_000 - 4099, k, live=0.5)
+        got_a, got_b = launch(*a, k), launch(*b, k)  # no sync between
+        hold(got_a, *a, k)
+        hold(got_b, *b, k)
     n = 5_000_000
     top = np.uint64(1 << 63)
     keys = r.integers(0, 1 << 63, n, dtype=np.uint64)
