@@ -42,11 +42,12 @@ _U32 = ctypes.c_uint32
 # stream are c_void_p so ctypes passes them at full width
 _ENTRIES = {
     "lut_gather": ("lut_gather_launch", [_P, _P, _P, _I64, _P]),
-    # h, step, probe codes, build codes, owner, ok, idx, flag,
-    # n, bcap, n_codes, T, max_rounds, stream
+    # h, step, probe code pointers and strides, build code pointers and
+    # strides, owner, ok, idx, flag, scratch, n, n_codes, T, max_rounds,
+    # stream
     "hash_probe": ("hash_probe_launch",
-                   [_P, _P, _P, _P, _P, _P, _P, _P,
-                    _I64, _I64, _I, _I64, _I, _P]),
+                   [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                    _I64, _I, _I64, _I, _P]),
     # dest, ok, rank, counts, look-back state, n, k, generation, stream
     "partition_rank": ("partition_rank_launch",
                        [_P, _P, _P, _P, _P, _I64, _I, _U32, _P]),
@@ -236,10 +237,15 @@ def _lut_gather(codes: torch.Tensor, lut: torch.Tensor,
 # (route hash_probe, :397, reached from hashtable.probe_slots)
 # ---------------------------------------------------------------------------
 
-def hash_probe_plain(build_codes: torch.Tensor, owner: torch.Tensor,
-                     probe_codes: torch.Tensor, ok: torch.Tensor,
-                     h: torch.Tensor, step: torch.Tensor, T: int,
-                     max_rounds: int):
+# code columns a hash_probe launch takes (csrc/hash_probe.cu kMaxCodes)
+HASH_PROBE_MAX_CODES = 64
+# hash_probe_form's values: how the kernel walks a call (csrc/hash_probe.cu)
+HASH_PROBE_FORMS = ("columns", "shared", "rows")
+
+
+def hash_probe_plain(build_codes, owner: torch.Tensor, probe_codes,
+                     ok: torch.Tensor, h: torch.Tensor, step: torch.Tensor,
+                     T: int, max_rounds: int):
     """Plain PyTorch version of the kernel: the JAX package's lock-step
     probe loop (bodo_tpu/ops/hashtable.py:248-269). Each round every
     still-walking row reads owner[(h + r*step) & (T-1)]: an empty slot is
@@ -261,35 +267,61 @@ def hash_probe_plain(build_codes: torch.Tensor, owner: torch.Tensor,
     return idx, active.any()
 
 
-def hash_probe(build_codes: torch.Tensor, owner: torch.Tensor,
-               probe_codes: torch.Tensor, ok: torch.Tensor, h: torch.Tensor,
-               step: torch.Tensor, T: int, max_rounds: int):
+def hash_probe(build_codes, owner: torch.Tensor, probe_codes,
+               ok: torch.Tensor, h: torch.Tensor, step: torch.Tensor, T: int,
+               max_rounds: int):
     """Open-addressing probe of `ok` rows into a claim table of T slots.
 
-    build_codes int64 [n_codes, bcap], owner int32 [T] (build row per
-    slot, -1 empty), probe_codes int64 [n_codes, N], ok bool [N], h and
-    step int64 [N] (the uint64 double-hash start and odd step, already
-    reduced mod T). Returns (idx int32 [N]: the build row with equal
-    codes, else -1; unresolved: a 0-d bool tensor, True when some ok row
-    was still walking after `max_rounds`). CPU tensors take the plain
-    version; CUDA tensors launch the kernel (csrc/hash_probe.cu) or
-    raise. Nothing syncs with the host."""
-    args = (build_codes, owner, probe_codes, ok, h, step)
-    if all(t.device.type == "cpu" for t in args):
-        return hash_probe_plain(*args, T, max_rounds)
-    dev = _on_one_cuda_device("hash_probe", args)
-    _check("hash_probe build_codes", build_codes, torch.int64, 2)
+    build_codes: a sequence of n_codes int64 [bcap] columns (a
+    [n_codes, bcap] tensor iterates as one), owner int32 [T] (build row
+    per slot, -1 empty), probe_codes: n_codes int64 [N] columns, ok bool
+    [N], h and step int64 [N] (the uint64 double-hash start and odd step,
+    already reduced mod T). A column may be any 1-D view: the kernel
+    takes each column's pointer and stride. Returns (idx int32 [N]: the
+    build row with equal codes, else -1; unresolved: a 0-d bool tensor,
+    True when some ok row was still walking after `max_rounds`). CPU
+    tensors take the plain version; CUDA tensors launch the kernel
+    (csrc/hash_probe.cu) or raise. Nothing syncs with the host."""
+    build_codes, probe_codes = tuple(build_codes), tuple(probe_codes)
+    given = (*build_codes, owner, *probe_codes, ok, h, step)
+    if all(t.device.type == "cpu" for t in given):
+        return hash_probe_plain(build_codes, owner, probe_codes, ok, h,
+                                step, T, max_rounds)
+    dev = _on_one_cuda_device("hash_probe", given)
+    call, idx, flag, _scratch = _hash_probe_call(
+        build_codes, owner, probe_codes, ok, h, step, T, max_rounds, dev)
+    if call is not None:
+        _launch("hash_probe", dev, *call)
+    return idx, flag[0] != 0
+
+
+def _hash_probe_call(build_codes, owner, probe_codes, ok, h, step, T: int,
+                     max_rounds: int, dev):
+    """Check a CUDA call of hash_probe and make its outputs and scratch.
+    Returns (the C entry's arguments but the stream, or None when there
+    is no row; idx; flag; the scratch for the rows form's slot rows, or
+    None). The launch goes on the current stream, so the allocator hands
+    the scratch to no other work before the launch has run."""
+    n_codes = len(probe_codes)
+    if len(build_codes) != n_codes or \
+            not 1 <= n_codes <= HASH_PROBE_MAX_CODES:
+        raise ValueError(f"hash_probe: {len(build_codes)} build and "
+                         f"{n_codes} probe code columns (1 to "
+                         f"{HASH_PROBE_MAX_CODES})")
+    for c in (*build_codes, *probe_codes):
+        if c.dtype != torch.int64 or c.dim() != 1:
+            raise TypeError(f"hash_probe takes 1-D int64 code columns, "
+                            f"got {c.dtype} {tuple(c.shape)}")
     _check("hash_probe owner", owner, torch.int32, 1)
-    _check("hash_probe probe_codes", probe_codes, torch.int64, 2)
     _check("hash_probe ok", ok, torch.bool, 1)
     _check("hash_probe h", h, torch.int64, 1)
     _check("hash_probe step", step, torch.int64, 1)
-    n_codes, n = probe_codes.shape
-    if build_codes.shape[0] != n_codes or n_codes < 1:
-        raise ValueError(f"hash_probe: {build_codes.shape[0]} build and "
-                         f"{n_codes} probe code columns")
-    if not (ok.shape[0] == h.shape[0] == step.shape[0] == n):
-        raise ValueError("hash_probe: ok, h, step and probe_codes differ "
+    n = ok.shape[0]
+    if len({c.shape[0] for c in build_codes}) != 1:
+        raise ValueError("hash_probe: build code columns differ in length")
+    if not (h.shape[0] == step.shape[0] == n
+            and all(c.shape[0] == n for c in probe_codes)):
+        raise ValueError("hash_probe: ok, h, step and probe codes differ "
                          "in length")
     if T < 16 or T & (T - 1) or owner.shape[0] != T:
         raise ValueError(f"hash_probe: T={T} must be a power of two >= 16 "
@@ -299,13 +331,33 @@ def hash_probe(build_codes: torch.Tensor, owner: torch.Tensor,
         raise ValueError(f"hash_probe: max_rounds={max_rounds}")
     idx = torch.empty(n, dtype=torch.int32, device=dev)
     flag = torch.zeros(1, dtype=torch.int32, device=dev)
-    if n:
-        _launch("hash_probe", dev, h.data_ptr(), step.data_ptr(),
-                probe_codes.data_ptr(), build_codes.data_ptr(),
-                owner.data_ptr(), ok.data_ptr(), idx.data_ptr(),
-                flag.data_ptr(), n, build_codes.shape[1], n_codes, T,
-                max_rounds)
-    return idx, flag[0] != 0
+    if not n:
+        return None, idx, flag, None
+    size = _lib("hash_probe").hash_probe_scratch_bytes
+    size.argtypes = [_I64, _I64, _I]
+    size.restype = ctypes.c_int64
+    nbytes = size(n, T, n_codes)
+    scratch = (torch.empty(nbytes, dtype=torch.uint8, device=dev)
+               if nbytes else None)
+    call = (h.data_ptr(), step.data_ptr(),
+            (_P * n_codes)(*(c.data_ptr() for c in probe_codes)),
+            (_I64 * n_codes)(*(c.stride(0) for c in probe_codes)),
+            (_P * n_codes)(*(c.data_ptr() for c in build_codes)),
+            (_I64 * n_codes)(*(c.stride(0) for c in build_codes)),
+            owner.data_ptr(), ok.data_ptr(), idx.data_ptr(),
+            flag.data_ptr(), None if scratch is None else scratch.data_ptr(),
+            n, n_codes, T, max_rounds)
+    return call, idx, flag, scratch
+
+
+def hash_probe_form(n: int, T: int, n_codes: int) -> str:
+    """How the hash_probe kernel walks a call of n probe rows into T slots
+    with n_codes code columns: "columns", "shared" or "rows" (the fixed
+    rule in csrc/hash_probe.cu's header)."""
+    fn = _lib("hash_probe").hash_probe_form
+    fn.argtypes = [_I64, _I64, _I]
+    fn.restype = ctypes.c_int
+    return HASH_PROBE_FORMS[fn(n, T, n_codes)]
 
 
 # ---------------------------------------------------------------------------

@@ -178,6 +178,5 @@ def probe_slots(build_codes: Sequence, owner, probe_codes: Sequence, ok,
     h = combine_hash(probe_codes)
     step = (_fmix64(h ^ _GOLD) | 1) & mask
     h = h & mask
-    return CK.hash_probe(torch.stack(tuple(build_codes)), owner,
-                         torch.stack(tuple(probe_codes)), ok, h, step, T,
+    return CK.hash_probe(build_codes, owner, probe_codes, ok, h, step, T,
                          max_rounds)

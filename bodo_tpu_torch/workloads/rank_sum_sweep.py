@@ -62,7 +62,7 @@ SUM_ROWS, SUM_K, SUM_LIVE = 1 << 24, 64, 0.666
 def _variant_source(name: str, consts: dict, replace=None) -> str:
     src = (CK.CSRC_DIR / CK.SOURCES[name]).read_text()
     for const, value in consts.items():
-        src, hits = re.subn(rf"constexpr int {const} = \d+;",
+        src, hits = re.subn(rf"constexpr int {const} = -?\d+;",
                             f"constexpr int {const} = {value};", src)
         if hits != 1:
             raise RuntimeError(f"{name}: {const} found {hits} times")

@@ -8,9 +8,13 @@ per source, all started together), then:
 
   1. holds each kernel against its plain PyTorch version on the card,
      bit-identical: lut_gather for LUTs of 1 to 2^22 slots (every size
-     the dense join admits), hash_probe for tables of 16 to 2^24 slots,
-     2 or 4 code columns, hit, miss and not-ok rows and an unresolved
-     walk; partition_rank for N in {1, 31, 1000, 4099, 5,000,000,
+     the dense join admits), hash_probe in each of its forms (slot rows
+     in shared memory, slot rows in device memory, the column walk) and
+     across their boundaries: tables of 16 to 2^24 slots, 1 to 8 code
+     columns, 1 to 20,000,000 probe rows, hit, near-miss, miss and
+     not-ok rows, duplicate build keys, code columns as contiguous rows,
+     rows at an odd offset and strided columns, max_rounds 0 and 1 (the
+     unresolved flag) and two tables back to back; partition_rank for N in {1, 31, 1000, 4099, 5,000,000,
      5,000,067} rows and K in {1, 4, 32, 33, 4096} buckets, views at odd
      offsets, no row ok, one bucket, two calls back to back;
      range_partition at N = 5,000,000 for 1, 3
@@ -54,7 +58,8 @@ per source, all started together), then:
        SF10 lineitem against its orders), through the hash join
        (hash_probe) and the dense groupby, against its numpy oracle (g
        and c exact, s within rtol 1e-9); hash_probe is then held
-       against its plain version and timed on the inputs a run gave it;
+       against its plain version and timed on the inputs a run gave it,
+       the whole call twice and its row build and walk apart;
      - the four join kinds (inner, left, right, outer) of the dimension
        against the fact table at 2,000,000 fact rows, whose duplicate
        keys send them through the sort join by hash gids, each against a
@@ -64,12 +69,13 @@ per source, all started together), then:
        (hash_probe on each shard), the two-phase sharded groupby
        (partition_rank in its shuffle), the sample sort (range_partition,
        then partition_rank), against the numpy oracle and row for row
-       against the REP run's result; partition_rank is then held against
-       its plain version and timed on each of the run's calls, and
-       range_partition on its first;
+       against the REP run's result; partition_rank and hash_probe are
+       then held against their plain versions and timed on each of the
+       run's calls, and range_partition on its first;
      - the star join with shard=True on 4 shards, on the REP phase's
        tables: the shuffle join (partition_rank on the 20M-row fact
-       table's shards), against the numpy oracle;
+       table's shards), against the numpy oracle; hash_probe is then
+       held and timed on each of the run's calls (one a shard);
      - the f32 groupby at 2^24 = 16,777,216 rows (workloads/f32_groupby:
        bench.py's dense-accumulate probe and test_hashtable's hashed
        frame, scaled): the dense query (filter, x + x, the dense groupby
@@ -200,83 +206,145 @@ def check_lut_gather(dev):
             "library_ms": library_ms}
 
 
-def _probe_case(dev, g, T: int, n_codes: int, bcap: int):
+def _columns(codes, layout: int):
+    """The rows of `codes` [n_codes, m] as code columns laid out one of
+    three ways: 0 rows of a contiguous tensor; 1 rows of a wider tensor
+    from its second column (8 bytes past 16-byte alignment); 2 columns
+    of a row-major [m, n_codes + 1] tensor (element stride n_codes + 1)."""
+    import torch
+    k, m = codes.shape
+    if layout == 0:
+        return tuple(codes.contiguous())
+    if layout == 1:
+        wide = torch.zeros(k, m + 1, dtype=codes.dtype, device=codes.device)
+        wide[:, 1:] = codes
+        return tuple(wide[:, 1:])
+    rows = torch.zeros(m, k + 1, dtype=codes.dtype, device=codes.device)
+    rows[:, :k] = codes.T
+    return tuple(rows[:, j] for j in range(k))
+
+
+def _probe_case(dev, g, T: int, n_codes: int, bcap: int, layout: int = 0):
     """Build codes (a 0/1 null-flag column, like a join's, then random
-    64-bit codes) claimed into a T-slot table by the port's claim_slots.
-    Returns (build codes [n_codes, bcap], owner)."""
+    64-bit codes; the last 3 rows repeat the first 3, so duplicate keys
+    share a slot as in the hash-gid join) claimed into a T-slot table by
+    the port's claim_slots. Returns (build code columns in `layout`,
+    owner)."""
     import torch
     from bodo_tpu_torch.ops import hashtable as HT
     bcodes = torch.randint(-(1 << 62), 1 << 62, (n_codes, bcap),
                            generator=g, device=dev, dtype=torch.int64)
     bcodes[0] = torch.randint(0, 2, (bcap,), generator=g, device=dev)
+    if bcap > 6:
+        bcodes[:, -3:] = bcodes[:, :3]
     bok = torch.rand(bcap, generator=g, device=dev) < 0.9
     _slot, owner, _r, unresolved = HT.claim_slots(tuple(bcodes), bok, T)
     assert not unresolved
-    return bcodes, owner
+    return _columns(bcodes, layout), owner
 
 
-def _probe_rows(dev, g, bcodes, n: int, T: int):
+def _probe_rows(dev, g, bcodes, n: int, T: int, layout: int = 0):
     """n probe rows: a third hit a build key, a third differ from one in
     one code (near miss), a third are random (miss); 15% are not ok.
-    Returns (probe codes [n_codes, n], ok, h, step) as probe_slots makes
-    them."""
+    Returns (probe code columns in `layout`, ok, h, step) as probe_slots
+    makes them."""
     import torch
     from bodo_tpu_torch.ops import hashtable as HT
-    n_codes, bcap = bcodes.shape
+    n_codes, bcap = len(bcodes), bcodes[0].shape[0]
     rows = torch.randint(0, bcap, (n,), generator=g, device=dev)
-    pcodes = bcodes[:, rows].clone()
+    pcodes = torch.stack([c[rows] for c in bcodes])
     kind = torch.arange(n, device=dev) % 3
     pcodes[n_codes - 1] ^= (kind == 1).to(torch.int64)
     rnd = torch.randint(-(1 << 62), 1 << 62, (n_codes, n), generator=g,
                         device=dev, dtype=torch.int64)
-    pcodes = torch.where(kind == 2, rnd, pcodes).contiguous()
+    pcodes = torch.where(kind == 2, rnd, pcodes)
     ok = torch.rand(n, generator=g, device=dev) < 0.85
     h = HT.combine_hash(tuple(pcodes))
     step = (HT._fmix64(h ^ HT._GOLD) | 1) & (T - 1)
-    return pcodes, ok, h & (T - 1), step
+    return _columns(pcodes, layout), ok, h & (T - 1), step
+
+
+def _hold_probe(args, label: str, unresolved=None):
+    """hash_probe on `args` bit-identical to its plain version (and its
+    unresolved flag equal to `unresolved` where given), else raise."""
+    import torch
+    from bodo_tpu_torch.ops import cuda_kernels as CK
+    idx, un = CK.hash_probe(*args)
+    want_idx, want_un = CK.hash_probe_plain(*args)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(idx, want_idx)) and bool(un) == bool(want_un)
+    ok = args[3]
+    print(f"hash_probe {label}: bit_identical={same} "
+          f"hits={int((idx >= 0).sum())} ok_rows={int(ok.sum())} "
+          f"unresolved={bool(un)} (plain {bool(want_un)})")
+    if not same or (unresolved is not None and bool(un) != unresolved):
+        raise AssertionError(f"hash_probe differs from its plain version "
+                             f"or its unresolved flag is wrong ({label})")
+
+
+# (T, build rows) of the hash_probe cases: every form of the kernel and
+# the boundaries between them (its shared form holds T * row bytes <= 32
+# KiB: T <= 2048 at 1 code column, 1024 at 2-3, 512 at 4-7; its rows form
+# takes 2 or 3 code columns at T >= 2^24 and N >= T/2), a table of 2^20
+# slots and the star join's table
+PROBE_TABLES = ((16, 8), (512, 256), (1024, 512), (2048, 1024),
+                (4096, 2048), (1 << 20, 1 << 19), (1 << 24, STAR_ROWS // 4))
+PROBE_CODES = (1, 2, 3, 4, 7, 8)
 
 
 def check_hash_probe(dev):
     """Phase 1 for hash_probe: bit-identity with its plain version for
-    every (T, N, n_codes) case, and one max_rounds=1 walk on a crowded
-    table whose unresolved flag must be raised and agree."""
+    every (T, n_codes, N) case, code columns laid out three ways; then,
+    in each form, max_rounds 0 and 1 (the unresolved flag raised and
+    equal to the plain version's) and two calls back to back on
+    different tables of one T."""
     import torch
     from bodo_tpu_torch.ops import cuda_kernels as CK
     from bodo_tpu_torch.ops import hashtable as HT
 
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
-    for T, bcap in ((16, 8), (4096, 2048), (1 << 24, STAR_ROWS // 4)):
-        for n_codes in (2, 4):
-            bcodes, owner = _probe_case(dev, g, T, n_codes, bcap)
+    forms = set()
+    case = 0
+    for T, bcap in PROBE_TABLES:
+        for n_codes in PROBE_CODES:
+            layout = case % 3
+            case += 1
+            bcodes, owner = _probe_case(dev, g, T, n_codes, bcap, layout)
             for n in (1, 511, 513, PROBE_ROWS, STAR_ROWS):
-                pcodes, ok, h, step = _probe_rows(dev, g, bcodes, n, T)
-                args = (bcodes, owner, pcodes, ok, h, step, T, HT.MAX_ROUNDS)
-                idx, un = CK.hash_probe(*args)
-                want_idx, want_un = CK.hash_probe_plain(*args)
-                torch.cuda.synchronize()
-                same = (bool(torch.equal(idx, want_idx))
-                        and bool(un) == bool(want_un))
-                print(f"hash_probe T={T} n_codes={n_codes} N={n}: "
-                      f"bit_identical={same} hits={int((idx >= 0).sum())} "
-                      f"ok_rows={int(ok.sum())} unresolved={bool(un)}")
-                if not same or bool(un):
-                    raise AssertionError(f"hash_probe differs from its "
-                                         f"plain version at T={T} "
-                                         f"n_codes={n_codes} N={n}")
+                pcodes, ok, h, step = _probe_rows(dev, g, bcodes, n, T,
+                                                  (layout + 1) % 3)
+                form = CK.hash_probe_form(n, T, n_codes)
+                forms.add(form)
+                _hold_probe((bcodes, owner, pcodes, ok, h, step, T,
+                             HT.MAX_ROUNDS),
+                            f"T={T} n_codes={n_codes} N={n} form={form} "
+                            f"layouts={layout},{(layout + 1) % 3}",
+                            unresolved=False)
+                del pcodes, ok, h, step
             del bcodes, owner
-    T = 4096
-    bcodes, owner = _probe_case(dev, g, T, 2, T // 2)
-    pcodes, ok, h, step = _probe_rows(dev, g, bcodes, 4099, T)
-    args = (bcodes, owner, pcodes, ok, h, step, T, 1)
-    idx, un = CK.hash_probe(*args)
-    want_idx, want_un = CK.hash_probe_plain(*args)
-    torch.cuda.synchronize()
-    same = bool(torch.equal(idx, want_idx)) and bool(un) == bool(want_un)
-    print(f"hash_probe T={T} max_rounds=1 (crowded): bit_identical={same} "
-          f"unresolved={bool(un)} (plain {bool(want_un)})")
-    if not (same and bool(un)):
-        raise AssertionError("hash_probe's unresolved walk differs from "
-                             "its plain version")
+    # max_rounds 0 and 1, and two tables back to back, in each form
+    for T, bcap, n in ((512, 256, 4099), (1 << 20, 1 << 19, 4099),
+                       (1 << 24, STAR_ROWS // 4, 1 << 23)):
+        form = CK.hash_probe_form(n, T, 2)
+        forms.add(form)
+        tables = [_probe_case(dev, g, T, 2, bcap) for _ in range(2)]
+        calls = [(b, o, *_probe_rows(dev, g, b, n, T)) for b, o in tables]
+        for rounds in (0, 1):
+            _hold_probe((*calls[0], T, rounds),
+                        f"T={T} N={n} form={form} max_rounds={rounds}",
+                        unresolved=True)
+        got = [CK.hash_probe(*c, T, HT.MAX_ROUNDS) for c in calls]
+        want = [CK.hash_probe_plain(*c, T, HT.MAX_ROUNDS) for c in calls]
+        torch.cuda.synchronize()
+        same = all(bool(torch.equal(a[0], b[0])) and bool(a[1]) == bool(b[1])
+                   for a, b in zip(got, want))
+        print(f"hash_probe T={T} N={n} form={form}: two tables back to "
+              f"back bit_identical={same}")
+        if not same:
+            raise AssertionError(f"hash_probe's back-to-back calls differ "
+                                 f"from its plain version at T={T}")
+    if forms != set(CK.HASH_PROBE_FORMS):
+        raise AssertionError(f"hash_probe cases reached the forms {forms}")
 
 
 def probe_walk(bcodes, owner, pcodes, ok, h, step, T: int, max_rounds: int):
@@ -288,7 +356,7 @@ def probe_walk(bcodes, owner, pcodes, ok, h, step, T: int, max_rounds: int):
     32-byte sectors of the build code columns)."""
     import torch
     mask = T - 1
-    n_codes, n = pcodes.shape
+    n_codes, n = len(pcodes), ok.shape[0]
     active = ok.clone()
     rounds = compares = 0
     compared = [torch.zeros_like(ok) for _ in range(n_codes)]
@@ -316,22 +384,54 @@ def probe_walk(bcodes, owner, pcodes, ok, h, step, T: int, max_rounds: int):
     return streamed, rounds, compares, owner_sectors, code_sectors
 
 
+def probe_bound(args):
+    """hash_probe's bound on `args`: every input the walks need read once
+    (the streamed bytes and each owner and code sector the walks touch)
+    over the card's memory rate. Returns (bound ms, bytes, probe_walk's
+    counts)."""
+    counts = probe_walk(*args)
+    streamed, _rounds, _compares, owner_sectors, code_sectors = counts
+    nbytes = streamed + 32 * owner_sectors + 32 * code_sectors
+    return nbytes / HBM_BYTES_PER_S * 1e3, nbytes, counts
+
+
+def probe_phase_ms(args):
+    """Device ms of the rows form's two launches, each alone through the
+    kernel's phase entry (a measurement, so no launch is counted):
+    (row build, walk)."""
+    import torch
+    from bodo_tpu_torch.ops import cuda_kernels as CK
+    fn = CK._lib("hash_probe").hash_probe_phase_launch
+    fn.argtypes = [*CK._ENTRIES["hash_probe"][1][:-1], CK._I, CK._P]
+    fn.restype = CK._I
+    call, _idx, _flag, _scratch = CK._hash_probe_call(*args, args[3].device)
+    stream = torch.cuda.current_stream().cuda_stream
+    times = []
+    for phase in (1, 2):
+        if fn(*call, phase, stream):
+            raise RuntimeError(f"hash_probe phase {phase} launch failed")
+        times.append(device_ms(lambda: fn(*call, phase, stream)))
+    return tuple(times)
+
+
 def time_hash_probe(args):
     """Hold hash_probe against its plain version on the inputs the star
-    path gave it, time both there, and compute its bound from what this
+    path gave it, time both there (the kernel's whole call twice, and its
+    row build and walk apart), and compute its bound from what this
     run's walk reads."""
     import torch
     from bodo_tpu_torch.ops import cuda_kernels as CK
     bcodes, owner, pcodes, ok, h, step, T, max_rounds = args
-    n_codes, n = pcodes.shape
+    n_codes, n = len(pcodes), ok.shape[0]
+    form = CK.hash_probe_form(n, T, n_codes)
     idx, un = CK.hash_probe(*args)
     want_idx, want_un = CK.hash_probe_plain(*args)
     torch.cuda.synchronize()
     err = int((idx.long() - want_idx.long()).abs().max())
     same = bool(torch.equal(idx, want_idx)) and bool(un) == bool(want_un)
-    print(f"hash_probe (star path's call) T={T} N={n} n_codes={n_codes}: "
-          f"bit_identical={same} max_abs_diff={err} unresolved={bool(un)} "
-          f"(plain {bool(want_un)})")
+    print(f"hash_probe (star path's call) T={T} N={n} n_codes={n_codes} "
+          f"form={form}: bit_identical={same} max_abs_diff={err} "
+          f"unresolved={bool(un)} (plain {bool(want_un)})")
     if not same:
         raise AssertionError("hash_probe differs from its plain version on "
                              "the star path's inputs")
@@ -339,23 +439,22 @@ def time_hash_probe(args):
     kernel_ms = device_ms(lambda: CK.hash_probe(*args))
     plain_ms = device_ms(lambda: CK.hash_probe_plain(*args), reps=5)
     kernel_ms_again = device_ms(lambda: CK.hash_probe(*args))
-    streamed, rounds, compares, owner_sectors, code_sectors = \
-        probe_walk(*args)
+    build_ms, walk_ms = probe_phase_ms(args)
+    bound_ms, nbytes, counts = probe_bound(args)
+    streamed, rounds, compares, owner_sectors, code_sectors = counts
     n_ok = int(ok.sum())
-    # least bytes: every input the walks need read once — the streamed
-    # bytes and each owner and code sector the walks touch
-    nbytes = streamed + 32 * owner_sectors + 32 * code_sectors
-    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    # the random-access model: one sector per owner read and per code read
+    # the random-access model of the column walk: one sector per owner
+    # read and per code read
     sector_bytes = streamed + 32 * rounds + 32 * compares
     print(f"hash_probe timing (star path's call) T={T} N={n} ok_rows={n_ok} "
-          f"n_codes={n_codes}: kernel_ms={kernel_ms:.6f} (again "
-          f"{kernel_ms_again:.6f}) plain_ms={plain_ms:.6f} "
+          f"n_codes={n_codes} form={form}: kernel_ms={kernel_ms:.6f} "
+          f"(again {kernel_ms_again:.6f}; row build {build_ms:.6f} + walk "
+          f"{walk_ms:.6f} launched apart) plain_ms={plain_ms:.6f} "
           f"bound_ms={bound_ms:.6f} ({nbytes} bytes: {streamed} streamed, "
           f"{owner_sectors} owner and {code_sectors} code sectors) "
           f"mean_rounds={rounds / max(n_ok, 1):.6f} "
           f"code_compares_per_row={compares / max(n_ok, 1):.6f} "
-          f"random_sector_bound_ms="
+          f"column_walk_sector_bound_ms="
           f"{sector_bytes / HBM_BYTES_PER_S * 1e3:.6f} "
           f"({sector_bytes} bytes); library_ms=null (no single PyTorch "
           f"call probes a hash table)")
@@ -363,7 +462,35 @@ def time_hash_probe(args):
             "source": "bodo_tpu_torch/csrc/hash_probe.cu",
             "replaces": "bodo_tpu/ops/pallas_kernels.py:299",
             "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}
+            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
+            "form": form, "ms_again": kernel_ms_again, "build_ms": build_ms,
+            "walk_ms": walk_ms}
+
+
+def time_probe_calls(calls, label: str):
+    """Hold hash_probe against its plain version on each call a path made
+    and time the kernel on each at its own shape. Returns one entry a
+    call: N, T, n_codes, form, ms, bound_ms."""
+    import torch
+    from bodo_tpu_torch.ops import cuda_kernels as CK
+    rows = []
+    for j, args in enumerate(calls):
+        n, T, n_codes = args[3].shape[0], args[6], len(args[2])
+        form = CK.hash_probe_form(n, T, n_codes)
+        what = (f"({label}'s call {j + 1} of {len(calls)}) N={n} T={T} "
+                f"n_codes={n_codes} form={form}")
+        _hold_probe(args, what)
+        ms = device_ms(lambda: CK.hash_probe(*args))
+        bound_ms = probe_bound(args)[0]
+        print(f"hash_probe timing {what}: kernel_ms={ms:.6f} "
+              f"bound_ms={bound_ms:.6f} ({bound_ms / ms:.1%} of the bound)")
+        rows.append({"N": n, "T": T, "n_codes": n_codes, "form": form,
+                     "ms": ms, "bound_ms": bound_ms})
+    torch.cuda.synchronize()
+    print(f"hash_probe on the {label}: {len(calls)} calls, sum of kernel "
+          f"ms {sum(r['ms'] for r in rows):.6f} against sum of bound ms "
+          f"{sum(r['bound_ms'] for r in rows):.6f}")
+    return rows
 
 
 def _hold_partition_rank(dest, ok, k: int, got, label: str) -> None:
@@ -1365,7 +1492,8 @@ def run_star_1d(fact, dim, oracle):
     """Drive the star join with shard=True on SHARDS shards of the card,
     on the REP phase's tables: the shuffle join (both sides hashed to
     their key's shard, partition_rank on every shard), the sharded
-    groupby and sort; check it against the numpy oracle."""
+    groupby and sort; check it against the numpy oracle. Returns the
+    arguments of every hash_probe call of a later run, for timing."""
     import torch
     from bodo_tpu_torch import relational as R
     from bodo_tpu_torch.ops import cuda_kernels as CK
@@ -1397,6 +1525,10 @@ def run_star_1d(fact, dim, oracle):
         raise AssertionError(f"star path 1D: shuffle join or its kernels "
                              f"not taken: {routes} {launches}")
     no_f32_accumulate(launches, "star path 1D")
+    # one more run, keeping the inputs of its hash_probe launches
+    with _Capture("hash_probe") as probe:
+        S.pipeline(fact, dim, shard=True, n_shards=SHARDS)
+    return probe.calls
 
 
 def _rows_matrix(cols):
@@ -1539,8 +1671,8 @@ def run_taxi_1d(trips, weather, rep_got, oracle):
     SHARDS shards, with the counts reset just before and read just
     after; check it against the numpy oracle and, row for row, against
     the REP run's result. Returns (kernel launch counts of that run, the
-    arguments of every partition_rank call and of the first
-    range_partition call of a later run, for timing)."""
+    arguments of every partition_rank call, of the first range_partition
+    call and of every hash_probe call of a later run, for timing)."""
     import torch
     from bodo_tpu_torch import relational as R
     from bodo_tpu_torch.ops import cuda_kernels as CK
@@ -1583,13 +1715,17 @@ def run_taxi_1d(trips, weather, rep_got, oracle):
             raise AssertionError(f"main path 1D: {k} not launched")
     no_f32_accumulate(launches, "main path 1D")
     with _Capture("partition_rank") as pr, \
-            _Capture("range_partition") as rp:
+            _Capture("range_partition") as rp, _Capture("hash_probe") as hp:
         run()
     if len(pr.calls) != launches["partition_rank"]:
         raise AssertionError(f"main path 1D: {len(pr.calls)} partition_rank "
                              f"calls in a later run, "
                              f"{launches['partition_rank']} in the first")
-    return launches, pr.calls, rp.calls[0]
+    if len(hp.calls) != launches["hash_probe"]:
+        raise AssertionError(f"main path 1D: {len(hp.calls)} hash_probe "
+                             f"calls in a later run, "
+                             f"{launches['hash_probe']} in the first")
+    return launches, pr.calls, rp.calls[0], hp.calls
 
 
 def main() -> int:
@@ -1641,15 +1777,21 @@ def main() -> int:
     probe = time_hash_probe(probe_args)
     probe["launches"] = star_launches["hash_probe"]
     del probe_args
-    oned_launches, rank_calls, range_args = run_taxi_1d(*taxi_run)
+    oned_launches, rank_calls, range_args, oned_probes = \
+        run_taxi_1d(*taxi_run)
     del taxi_run
     rank = time_partition_rank(rank_calls)
     rank["launches"] = oned_launches["partition_rank"]
     part = time_range_partition(range_args)
     part["launches"] = oned_launches["range_partition"]
-    del rank_calls, range_args
-    run_star_1d(*star_run)
+    probe["taxi_1d_launches"] = oned_launches["hash_probe"]
+    probe["taxi_1d_calls"] = time_probe_calls(oned_probes,
+                                              "1D taxi path")
+    del rank_calls, range_args, oned_probes
+    star_probes = run_star_1d(*star_run)
     del star_run
+    probe["star_1d_calls"] = time_probe_calls(star_probes, "1D star path")
+    del star_probes
     dense_launches, sparse_launches, acc_args = run_f32_groupby()
     acc = time_groupby_sum(acc_args)
     acc["launches"] = dense_launches["groupby_sum"]
