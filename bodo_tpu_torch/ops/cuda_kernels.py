@@ -51,9 +51,10 @@ _ENTRIES = {
     # dest, ok, rank, counts, look-back state, n, k, generation, stream
     "partition_rank": ("partition_rank_launch",
                        [_P, _P, _P, _P, _P, _I64, _I, _U32, _P]),
-    # pk, splitters, out, n, n_spl, stream
+    # shard key pointers, splitter rows, out, n a shard, shards, n_spl,
+    # stream
     "range_partition": ("range_partition_launch",
-                        [_P, _P, _P, _I64, _I, _P]),
+                        [_P, _P, _P, _I64, _I, _I, _P]),
     # data, nb, segs, n_segs, starts, is_rle, vals, bits, n_runs, out, n,
     # stream
     "hybrid_expand": ("hybrid_expand_segments_launch",
@@ -466,40 +467,96 @@ def _partition_rank_state(dev: torch.device, n: int, k: int):
 # (route range_partition, :701, reached from ops/sort.py's sample sort)
 # ---------------------------------------------------------------------------
 
-# the kernel stages the splitters in shared memory (32 KB)
+# the kernel's large form stages a shard's splitters in shared memory
 RANGE_MAX_SPLITTERS = 4096
+# shards a launch takes (csrc/range_partition.cu kMaxShards)
+RANGE_MAX_SHARDS = 16
+# range_partition_form's values (csrc/range_partition.cu)
+RANGE_FORMS = ("small", "large")
 _SIGN64 = -(1 << 63)
 
 
-def range_partition_plain(pk: torch.Tensor, splitters: torch.Tensor):
-    """Plain PyTorch version of the kernel: torch.searchsorted on the
-    uint64 bits held in int64, with the sign bit flipped so that torch's
-    signed order is the unsigned order."""
+def _searchsorted_u64(pk: torch.Tensor, splitters: torch.Tensor):
+    """torch.searchsorted on the uint64 bits held in int64, with the sign
+    bit flipped so that torch's signed order is the unsigned order."""
     return torch.searchsorted((splitters ^ _SIGN64).contiguous(),
                               (pk ^ _SIGN64).contiguous(),
                               right=True).to(torch.int32)
 
 
-def range_partition(pk: torch.Tensor, splitters: torch.Tensor):
+def range_partition_plain(pk, splitters: torch.Tensor):
+    """Plain PyTorch version of the kernel: for one key tensor and 1-D
+    splitters, torch.searchsorted on the uint64 bits; for a sequence of S
+    key tensors and [S, n_spl] splitters, that for each shard with its
+    row, the results concatenated."""
+    if isinstance(pk, torch.Tensor):
+        return _searchsorted_u64(pk, splitters)
+    pks = tuple(pk)
+    if not pks or splitters.dim() != 2 or splitters.shape[0] != len(pks):
+        raise ValueError(f"range_partition: {len(pks)} shards need "
+                         f"[{len(pks)}, n_spl] splitters, got "
+                         f"{tuple(splitters.shape)}")
+    return torch.cat([_searchsorted_u64(p, row)
+                      for p, row in zip(pks, splitters)])
+
+
+def range_partition(pk, splitters: torch.Tensor):
     """searchsorted(splitters, pk, side='right') over uint64 keys held in
-    int64 tensors: pk [N], splitters [n_spl] sorted ascending as unsigned
-    64-bit integers, n_spl <= 4096 -> int32 [N], the number of splitters
-    <= each key. CPU tensors take the plain version; CUDA tensors launch
-    the kernel (csrc/range_partition.cu) or raise."""
-    if pk.device.type == "cpu" and splitters.device.type == "cpu":
+    int64 tensors: the number of splitters <= each key, as int32.
+
+    pk is one key tensor [N] with 1-D splitters [n_spl], or a sequence of
+    S key tensors (the shards of a sample-sort pass, each N keys long,
+    any 1-D view) with [S, n_spl] splitters, shard i's row i. Each row is
+    sorted ascending as unsigned 64-bit integers, n_spl <= 4096. Returns
+    the S * N destinations, shard after shard. CPU tensors take the plain
+    version; CUDA tensors launch the kernel (csrc/range_partition.cu) or
+    raise: one launch for every RANGE_MAX_SHARDS shards."""
+    pks = (pk,) if isinstance(pk, torch.Tensor) else tuple(pk)
+    if all(t.device.type == "cpu" for t in (*pks, splitters)):
         return range_partition_plain(pk, splitters)
-    dev = _on_one_cuda_device("range_partition", (pk, splitters))
-    _check("range_partition pk", pk, torch.int64, 1)
-    _check("range_partition splitters", splitters, torch.int64, 1)
-    n_spl = splitters.shape[0]
+    dev = _on_one_cuda_device("range_partition", (*pks, splitters))
+    if isinstance(pk, torch.Tensor):
+        _check("range_partition splitters", splitters, torch.int64, 1)
+        spl = splitters.view(1, -1)
+    else:
+        _check("range_partition splitters", splitters, torch.int64, 2)
+        spl = splitters
+    s, n_spl = spl.shape
+    if not pks or s != len(pks):
+        raise ValueError(f"range_partition: {len(pks)} shards, {s} "
+                         f"splitter rows")
     if n_spl > RANGE_MAX_SPLITTERS:
         raise ValueError(f"range_partition: {n_spl} splitters (the kernel "
                          f"takes at most {RANGE_MAX_SPLITTERS})")
-    out = torch.empty(pk.shape[0], dtype=torch.int32, device=dev)
-    if pk.shape[0]:
-        _launch("range_partition", dev, pk.data_ptr(), splitters.data_ptr(),
-                out.data_ptr(), pk.shape[0], n_spl)
+    for p in pks:
+        _check("range_partition pk", p, torch.int64, 1)
+        if p.data_ptr() % 8:
+            raise ValueError("range_partition: keys off 8-byte alignment")
+    n = pks[0].shape[0]
+    if any(p.shape[0] != n for p in pks):
+        raise ValueError(f"range_partition: shards of "
+                         f"{sorted({p.shape[0] for p in pks})} keys (the "
+                         f"kernel takes shards of one length)")
+    out = torch.empty(s * n, dtype=torch.int32, device=dev)
+    if n:
+        for a in range(0, s, RANGE_MAX_SHARDS):
+            group = pks[a:a + RANGE_MAX_SHARDS]
+            _launch("range_partition", dev,
+                    (_P * len(group))(*(p.data_ptr() for p in group)),
+                    spl[a].data_ptr(), out[a * n:].data_ptr(), n,
+                    len(group), n_spl)
     return out
+
+
+def range_partition_form(n_spl: int) -> str:
+    """The form the kernel takes for n_spl splitters: "small" (each lane
+    counts the row through the read-only path) or "large" (the row staged
+    in shared memory, a binary search), by the rule in
+    csrc/range_partition.cu's header."""
+    fn = _lib("range_partition").range_partition_form
+    fn.argtypes = [_I]
+    fn.restype = ctypes.c_int
+    return RANGE_FORMS[fn(n_spl)]
 
 
 # ---------------------------------------------------------------------------

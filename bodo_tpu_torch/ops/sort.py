@@ -129,9 +129,11 @@ def _sort_sharded_body(arrays, counts, num_keys: int,
     all_samples = C.all_gather_rows(torch.cat(samples), s)  # [S * S*k]
 
     # 2. range shuffle: dest = #splitters <= pk (the range_partition
-    # kernel), then bucket -> all_to_all -> compact
-    dest = torch.cat([CK.range_partition(pks[i], _splitters(a, s))
-                      for i, a in enumerate(all_samples.reshape(s, -1))])
+    # kernel, one launch over every shard with its row of splitters,
+    # written as the shuffle's destination column), then bucket ->
+    # all_to_all -> compact
+    spl = torch.stack([_splitters(a, s) for a in all_samples.reshape(s, -1)])
+    dest = CK.range_partition(pks, spl)
     flat, slots = _flatten_with_valids(arrays)
     out, cnt2, ovf = shuffle_rows(dest, flat, cnts, s, bucket_cap)
     rebuilt = _rebuild_from_flat(out, slots)

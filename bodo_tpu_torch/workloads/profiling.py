@@ -99,7 +99,8 @@ def stage_means(run: Callable[[], object], reps: int, stages, substages
 # symbols of the port's own CUDA kernels (bodo_tpu_torch/csrc)
 PORT_KERNELS = ("lut_gather_kernel", "hash_probe_build_rows",
                 "hash_probe_walk", "rank_small", "rank_general",
-                "range_partition_kernel", "hybrid_expand_kernel",
+                "range_partition_small", "range_partition_large",
+                "hybrid_expand_kernel",
                 "groupby_sum_tile")
 
 

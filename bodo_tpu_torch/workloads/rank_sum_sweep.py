@@ -1,7 +1,9 @@
-"""What holds the partition_rank and groupby_sum kernels: their times at
-their main paths' shapes over rows a thread and threads a block.
+"""What holds the partition_rank, groupby_sum and range_partition
+kernels: their times at their main paths' shapes over rows a thread and
+threads a block.
 
-    python -m bodo_tpu_torch.workloads.rank_sum_sweep
+    python -m bodo_tpu_torch.workloads.rank_sum_sweep \
+        [--kernels partition_rank groupby_sum range_partition]
 
 Run from the checkout root on a machine with one NVIDIA GPU and nvcc: it
 takes chip_smoke.py's timer, float64 sums and tolerance. Each variant is
@@ -21,6 +23,18 @@ against the plain version (partition_rank bit for bit, groupby_sum within
   kRows (rows a thread a step) x kThreads x kMaxCopies (histogram
   copies); each also with every mask unset (the code and mask loads
   alone).
+- range_partition: S = 1 and 4 shards of N = 2^16 to 2^24 random keys
+  a shard (a tenth of them the padding key) with n_spl in {1, 3, 7, 63,
+  4095} splitters a row drawn from the keys, and the 1D taxi path's
+  pass (S = 4, N = 885,504, 3 splitters) and one shard of it;
+  kSmallKeys (keys a thread in the small form) x kThreads, kLargeKeys
+  (in the large form), the small form's bound kSmallMax (64 and 128
+  take 63 splitters in the small form), the waves of resident blocks
+  (kSmallWaves 1 and 2: persistent blocks over contiguous tiles, the
+  next tile's keys loaded first; kLargeWaves 0: a block a tile, and 2),
+  and the large form's staged row as 64-bit words (kSplitWords 0)
+  instead of high and low halves. A copy of the keys (16 B a key) is
+  timed beside each shape as the streaming yardstick.
 
 Times are chip_smoke.device_ms: the median of 20 calls queued behind a
 spin kernel; the bound is the bytes the call must move over 3.35 TB/s.
@@ -57,6 +71,16 @@ SUM_VARIANTS = ((4, 512, 32), (4, 512, 1), (4, 512, 8), (4, 512, 16),
                 (8, 512, 32), (4, 256, 32), (8, 256, 32), (4, 1024, 32))
 RANK_ROWS, RANK_LIVE, RANK_K = 5_000_064, 0.4635, 4
 SUM_ROWS, SUM_K, SUM_LIVE = 1 << 24, 64, 0.666
+# range_partition: (kSmallKeys, kThreads), then other constants from the
+# source's defaults
+RANGE_VARIANTS = [{"kSmallKeys": k, "kThreads": t} for k in (2, 4, 8)
+                  for t in (128, 256, 512)] + [
+    {"kLargeKeys": 4}, {"kLargeKeys": 8}, {"kSmallMax": 64},
+    {"kSmallMax": 128}, {"kSmallWaves": 1}, {"kSmallWaves": 2},
+    {"kLargeWaves": 0}, {"kLargeWaves": 2}, {"kSplitWords": 0}]
+RANGE_ROWS = (1 << 16, 1 << 18, 1 << 20, 1 << 22, 1 << 24)
+RANGE_SPLITTERS = (1, 3, 7, 63, 4095)
+PASS_ROWS = 885_504  # a shard of the 1D taxi path's sample sort
 
 
 def _variant_source(name: str, consts: dict, replace=None) -> str:
@@ -154,21 +178,93 @@ def sum_launcher(lib: ctypes.CDLL):
     return call
 
 
+def range_launcher(lib: ctypes.CDLL):
+    fn = lib.range_partition_launch
+    fn.argtypes = CK._ENTRIES["range_partition"][1]
+    fn.restype = ctypes.c_int
+
+    def call(pks, spl):
+        s, n = len(pks), pks[0].shape[0]
+        out = torch.empty(s * n, dtype=torch.int32, device=spl.device)
+        rc = fn((CK._P * s)(*(p.data_ptr() for p in pks)), spl.data_ptr(),
+                out.data_ptr(), n, s, spl.shape[1], _stream())
+        if rc:
+            raise RuntimeError(f"range_partition launch failed: {rc}")
+        return out
+    return call
+
+
+def _tag(consts: dict) -> str:
+    return "range_" + "_".join(f"{k}{v}" for k, v in consts.items())
+
+
+def sweep_range_partition(cs, dev) -> None:
+    built = build_all([("range_partition", _tag(c), c, None)
+                       for c in RANGE_VARIANTS])
+    for c in RANGE_VARIANTS:
+        print(f"range_partition {c}: {built[_tag(c)][1]}")
+    fns = {_tag(c): range_launcher(built[_tag(c)][0])
+           for c in RANGE_VARIANTS}
+    g = torch.Generator(device=dev).manual_seed(cs.SEED + 10)
+    shapes = [(s, n, m) for s in (1, 4) for n in RANGE_ROWS
+              for m in RANGE_SPLITTERS]
+    shapes += [(4, PASS_ROWS, 3), (1, PASS_ROWS, 3)]
+    best = []
+    for s, n, m in shapes:
+        pool = torch.randint(-(1 << 63), (1 << 63) - 1, (s * n,),
+                             generator=g, device=dev, dtype=torch.int64)
+        pool[::10] = -1
+        pks = [pool[j * n:(j + 1) * n] for j in range(s)]
+        spl = cs.range_rows(g, pks, m)
+        want = CK.range_partition_plain(pks, spl)
+        bound = cs.range_bound_ms(s, n, m)
+        copy = torch.empty_like(pool)
+        copy_ms = cs.device_ms(lambda: copy.copy_(pool))
+        times = {}
+        for c in RANGE_VARIANTS:
+            fn = fns[_tag(c)]
+            got = fn(pks, spl)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"range_partition {c} differs at "
+                                     f"S={s} N={n} n_spl={m}")
+            times[_tag(c)] = cs.device_ms(lambda: fn(pks, spl))
+        line = " ".join(f"{t[6:]}={ms:.6f}" for t, ms in times.items())
+        print(f"range_partition S={s} N={n} n_spl={m} bound_ms={bound:.6f} "
+              f"copy_ms={copy_ms:.6f}: {line}")
+        tag = min(times, key=times.get)
+        best.append((s, n, m, tag, times[tag], bound))
+        del pool, pks, spl, want, copy
+    for s, n, m, tag, ms, bound in best:
+        print(f"range_partition best S={s} N={n} n_spl={m}: {tag[6:]} "
+              f"{ms:.6f} ms ({bound / ms:.1%} of the bound)")
+
+
 def main() -> None:
+    import argparse
     import chip_smoke as cs
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kernels", nargs="+", default=[
+        "partition_rank", "groupby_sum", "range_partition"])
+    kernels = ap.parse_args().kernels
     dev = torch.device("cuda")
     print(profiling.card())
+    if "range_partition" in kernels:
+        sweep_range_partition(cs, dev)
+    g = torch.Generator(device=dev).manual_seed(cs.SEED + 8)
+    if "partition_rank" in kernels:
+        sweep_partition_rank(cs, dev, g)
+    if "groupby_sum" in kernels:
+        sweep_groupby_sum(cs, dev, g)
+
+
+def sweep_partition_rank(cs, dev, g) -> None:
     probes = list(RANK_PROBES.items())
     built = build_all(
         [("partition_rank", f"rank_{s}x{t}", {"kSteps": s, "kThreads": t},
           None) for s, t in RANK_VARIANTS]
         + [("partition_rank", f"rank_probe{j}", {}, rep)
-           for j, (_, rep) in enumerate(probes)]
-        + [("groupby_sum", f"sum_{r}x{t}x{c}",
-            {"kRows": r, "kThreads": t, "kMaxCopies": c}, None)
-           for r, t, c in SUM_VARIANTS])
-
-    g = torch.Generator(device=dev).manual_seed(cs.SEED + 8)
+           for j, (_, rep) in enumerate(probes)])
     live = torch.rand(RANK_ROWS, generator=g, device=dev) < RANK_LIVE
     dest = torch.where(live, torch.randint(0, RANK_K, (RANK_ROWS,),
                                            generator=g, device=dev),
@@ -200,6 +296,11 @@ def main() -> None:
               f"bound_ms={bound:.6f} ({bound / ms:.1%} of the bound) "
               f"bit_identical={checked or 'not held'} {regs}")
 
+
+def sweep_groupby_sum(cs, dev, g) -> None:
+    built = build_all([("groupby_sum", f"sum_{r}x{t}x{c}",
+                        {"kRows": r, "kThreads": t, "kMaxCopies": c}, None)
+                       for r, t, c in SUM_VARIANTS])
     codes = torch.randint(0, SUM_K, (SUM_ROWS,), generator=g, device=dev,
                           dtype=torch.int32)
     present = torch.rand(SUM_ROWS, generator=g, device=dev) < SUM_LIVE

@@ -78,10 +78,34 @@ def main() -> None:
               "pipeline_wall_s": walls,
               "pipeline_wall_s_median": statistics.median(walls),
               "stage_wall_s": stages, **P.trace(run)}
+    if shard:
+        result["range_partition_launches_per_pass"] = \
+            range_launches_per_pass(run, CK, SO)
     P.report(result)
+    if shard:
+        print(f"range_partition launches a sample-sort pass: "
+              f"{result['range_partition_launches_per_pass']}")
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(result, f, indent=1)
+
+
+def range_launches_per_pass(run, CK, SO) -> float:
+    """range_partition's kernel launches over the sample sort's passes in
+    one more run (a pass is a call of ops/sort._sort_sharded_body)."""
+    passes = [0]
+    body = SO._sort_sharded_body
+
+    def counted(*a, **k):
+        passes[0] += 1
+        return body(*a, **k)
+    SO._sort_sharded_body = counted
+    CK.reset_launches()
+    try:
+        run()
+    finally:
+        SO._sort_sharded_body = body
+    return CK.launches["range_partition"] / max(passes[0], 1)
 
 
 if __name__ == "__main__":

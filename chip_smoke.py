@@ -20,12 +20,17 @@ per source, all started together), then:
      range_partition at N = 5,000,000 for 1, 3
      and 4095 splitters, with keys whose top bit is set, the padding
      key, splitters equal to keys or duplicated, and an all-padding
-     shard's splitters; hybrid_expand one page at a time on RLE-only,
-     bit-packed-only and mixed streams of 1, 100 and 20,000 values at
-     bit widths 0, 1, 2, 8, 17 and 24 with run tables of 40 and 4,096
-     runs, over the whole padded output, and a chunk at a time on random
-     chunks of 1 to 200 segments at widths 0, 1, 2, 8, 15-18 and 24, one
-     staged past 256 MiB (bit offsets past 2^31); groupby_sum at N in
+     shard's splitters, then in its sequence form (all shards of a pass
+     in one launch) for S in {1, 4, 17} shards, n_spl in {1, 3, the
+     small form's bound and one more, 4095, 4096} and N in {1, 3, 4, 5,
+     885,504, 5,000,000} keys a shard, the shards contiguous and off
+     16-byte alignment, and two calls back to back; hybrid_expand one
+     page at a time on RLE-only, bit-packed-only and mixed streams of 1,
+     100 and 20,000 values at bit widths 0, 1, 2, 8, 17 and 24 with run
+     tables of 40 and 4,096 runs, over the whole padded output, and a
+     chunk at a time on random chunks of 1 to 200 segments at widths 0,
+     1, 2, 8, 15-18 and 24, one staged past 256 MiB (bit offsets past
+     2^31); groupby_sum at N in
      {0, 1, 1000, 4099, 1,000,003, 2^24} rows, K in {1, 64, 4096} slots
      and C in {1, 4, 16} columns (K = 4096, C = 16 in two column tiles)
      with masked rows and codes outside [0, K), then views at odd
@@ -71,11 +76,17 @@ per source, all started together), then:
        then partition_rank), against the numpy oracle and row for row
        against the REP run's result; partition_rank and hash_probe are
        then held against their plain versions and timed on each of the
-       run's calls, and range_partition on its first;
+       run's calls;
      - the star join with shard=True on 4 shards, on the REP phase's
        tables: the shuffle join (partition_rank on the 20M-row fact
        table's shards), against the numpy oracle; hash_probe is then
        held and timed on each of the run's calls (one a shard);
+     - range_partition held against its plain version on every call of
+       the two 1D paths (one launch a sample-sort pass), and timed there
+       beside a call a shard with torch.cat (the contract it replaced)
+       and torch.searchsorted, warm and with the L2 flushed; then on one
+       shard of the taxi pass and on 5,000,000 random keys with 1, 3 and
+       4095 splitters;
      - the f32 groupby at 2^24 = 16,777,216 rows (workloads/f32_groupby:
        bench.py's dense-accumulate probe and test_hashtable's hashed
        frame, scaled): the dense query (filter, x + x, the dense groupby
@@ -119,6 +130,8 @@ AVG_RTOL = 1e-9
 HBM_BYTES_PER_S = 3.35e12
 # the spin that holds the card while a timing loop is queued (~50 ms)
 SPIN_CYCLES = 100_000_000
+# written between calls timed with the L2 flushed (5x the H100's 50 MB L2)
+L2_FLUSH_BYTES = 256 << 20
 # the taxi trips file: pyarrow's default layout, as gen_taxi_data writes it
 READ_ROW_GROUPS = 20       # 1,048,576-row row groups of 20M rows
 # the f32 groupby: the largest capacity whose counts the f32 accumulate's
@@ -127,14 +140,20 @@ F32_ROWS = 1 << 24
 SUM_TOL_TEXT = "1e-5 * sum(|x|) per slot"
 
 
-def device_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+def device_ms(fn, reps: int = 20, warmup: int = 3,
+              flush: bool = False) -> float:
     """Median device time of one call of `fn` over `reps` calls, by CUDA
     events around each call. A spin kernel holds the card while the host
     queues the calls, so the calls run back to back and the events time
     the device, not the Python wrapper between launches (most of a call
     that runs for microseconds). A call that syncs with the host inside
-    (the plain hash_probe's loop) is timed with its syncs."""
+    (the plain hash_probe's loop) is timed with its syncs. With `flush`,
+    a buffer of L2_FLUSH_BYTES is written before each call, outside the
+    events, so each call finds its inputs in device memory and not in
+    the 50 MB L2."""
     import torch
+    buf = (torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+           if flush else None)
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -142,6 +161,8 @@ def device_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
     torch.cuda._sleep(SPIN_CYCLES)
     for start, end in zip(starts, ends):
+        if buf is not None:
+            buf.zero_()
         start.record()
         fn()
         end.record()
@@ -556,7 +577,8 @@ def check_partition_rank(dev):
 
 def check_range_partition(dev):
     """Phase 1 for range_partition: bit-identity with its plain version on
-    uint64 keys (held in int64) with the traps of unsigned order."""
+    uint64 keys (held in int64) with the traps of unsigned order, in the
+    one-tensor form, then in the sequence form."""
     import torch
     from bodo_tpu_torch.ops import cuda_kernels as CK
 
@@ -586,6 +608,90 @@ def check_range_partition(dev):
         if not same:
             raise AssertionError(f"range_partition differs from its plain "
                                  f"version ({label})")
+    check_range_partition_shards(dev, g)
+
+
+def range_rows(g, shards, n_spl: int):
+    """One sorted splitter row a shard, drawn from its keys (equal to
+    keys, duplicated where n_spl exceeds them); the second shard's row is
+    all padding keys, as an empty shard's samples make it."""
+    import torch
+    from bodo_tpu_torch.ops import cuda_kernels as CK
+    out = []
+    for j, k in enumerate(shards):
+        pick = torch.randint(0, k.shape[0], (n_spl,), generator=g,
+                             device=k.device)
+        row = torch.full((n_spl,), -1, device=k.device) if j == 1 \
+            else k[pick]
+        out.append(CK._SIGN64 ^ torch.sort(row ^ CK._SIGN64).values)
+    return torch.stack(out)
+
+
+RANGE_SHARD_ROWS = (1, 3, 4, 5, 885_504, SHARD_ROWS)
+
+
+def check_range_partition_shards(dev, g):
+    """range_partition's sequence form (one launch over up to
+    RANGE_MAX_SHARDS shards, each with its splitter row): bit-identity
+    with its plain version for S in {1, SHARDS, RANGE_MAX_SHARDS + 1}
+    shards, n_spl in {1, 3, the small form's bound and one more, 4095,
+    4096} and N in RANGE_SHARD_ROWS keys a shard, the shards contiguous
+    and as views off 16-byte alignment; one launch for every
+    RANGE_MAX_SHARDS shards; two calls back to back."""
+    import torch
+    from bodo_tpu_torch.ops import cuda_kernels as CK
+    small = max(m for m in range(CK.RANGE_MAX_SPLITTERS + 1)
+                if CK.range_partition_form(m) == "small")
+
+    def hold(shards, spl, got, label):
+        want = CK.range_partition_plain(shards, spl)
+        torch.cuda.synchronize()
+        if not bool(torch.equal(got, want)):
+            raise AssertionError(f"range_partition differs from its plain "
+                                 f"version ({label})")
+
+    spls = (1, 3, small, small + 1, 4095, CK.RANGE_MAX_SPLITTERS)
+    for s in (1, SHARDS, CK.RANGE_MAX_SHARDS + 1):
+        for n in RANGE_SHARD_ROWS:
+            pool = torch.randint(-(1 << 63), (1 << 63) - 1,
+                                 (s * (n + 1) + 1,), generator=g,
+                                 device=dev, dtype=torch.int64)
+            pool[::11] = -1  # padding keys; half the rest have the top bit
+            layouts = {
+                "contiguous": [pool[j * n:(j + 1) * n] for j in range(s)],
+                "off 16-byte alignment": [
+                    pool[1 + j * (n + 1):1 + j * (n + 1) + n]
+                    for j in range(s)]}
+            for n_spl in spls:
+                for layout, shards in layouts.items():
+                    spl = range_rows(g, shards, n_spl)
+                    before = CK.launches["range_partition"]
+                    got = CK.range_partition(shards, spl)
+                    want_launches = -(-s // CK.RANGE_MAX_SHARDS)
+                    if CK.launches["range_partition"] - before != \
+                            want_launches:
+                        raise AssertionError(f"range_partition: S={s} "
+                                             f"took {want_launches} "
+                                             f"launches")
+                    hold(shards, spl, got, f"S={s} N={n} n_spl={n_spl} "
+                         f"{layout}")
+            print(f"range_partition S={s} N={n} (launches a call "
+                  f"{-(-s // CK.RANGE_MAX_SHARDS)}) n_spl={list(spls)} "
+                  f"(small form up to {small}), contiguous and off "
+                  f"16-byte alignment: bit_identical=True")
+            del pool, layouts
+    n = 885_504
+    a = torch.randint(-(1 << 63), (1 << 63) - 1, (SHARDS * n + 5,),
+                      generator=g, device=dev, dtype=torch.int64)
+    sa = [a[j * n:(j + 1) * n] for j in range(SHARDS)]
+    sb = [a[5 + j * n:5 + (j + 1) * n] for j in range(SHARDS)]
+    spa, spb = range_rows(g, sa, SHARDS - 1), range_rows(g, sb, 4095)
+    got_a = CK.range_partition(sa, spa)  # no sync between the two
+    got_b = CK.range_partition(sb, spb)
+    hold(sa, spa, got_a, "back to back, first")
+    hold(sb, spb, got_b, "back to back, second")
+    print(f"range_partition two calls back to back (S={SHARDS} N={n}, "
+          f"n_spl 3 and 4095): bit_identical=True")
 
 
 class _Capture:
@@ -664,45 +770,99 @@ def time_partition_rank(calls):
             "path_ms": path_ms, "path_bound_ms": path_bound_ms}
 
 
-def time_range_partition(args):
-    """Hold range_partition against its plain version on the inputs the
-    1D taxi path gave it, time both there, and torch.searchsorted on the
-    same keys (sign-flipped once beforehand, so that its signed order is
-    the unsigned order)."""
+def range_bound_ms(s: int, n: int, n_spl: int) -> float:
+    """The least time of a range_partition call: S * N keys read (8 B)
+    and destinations written (4 B), S rows of splitters read, over the
+    card's memory rate."""
+    return (12 * s * n + 8 * s * n_spl) / HBM_BYTES_PER_S * 1e3
+
+
+def time_range_call(pks, spl, label: str) -> dict:
+    """Hold one range_partition call against its plain version and time
+    it: the one launch, the contract it replaced (a call a shard, then
+    torch.cat), torch.searchsorted on the same keys (batched over the
+    shards; keys and rows sign-flipped and stacked once beforehand, so
+    its signed order is the unsigned order), warm and with the L2
+    flushed; the plain version warm."""
     import torch
     from bodo_tpu_torch.ops import cuda_kernels as CK
-    pk, spl = args
-    got = CK.range_partition(pk, spl)
-    want = CK.range_partition_plain(pk, spl)
+    pks = tuple(pks)
+    got = CK.range_partition(pks, spl)
+    want = CK.range_partition_plain(pks, spl)
     torch.cuda.synchronize()
-    err = int((got.long() - want.long()).abs().max())
-    same = bool(torch.equal(got, want))
-    n, n_spl = pk.shape[0], spl.shape[0]
-    print(f"range_partition (1D taxi path's call) N={n} n_spl={n_spl}: "
-          f"bit_identical={same} max_abs_diff={err}")
-    if not same:
-        raise AssertionError("range_partition differs from its plain "
-                             "version on the 1D taxi path's inputs")
-    kernel_ms = device_ms(lambda: CK.range_partition(pk, spl))
-    plain_ms = device_ms(lambda: CK.range_partition_plain(pk, spl))
-    flipped_pk = (pk ^ CK._SIGN64).contiguous()
+    err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
+    if not bool(torch.equal(got, want)):
+        raise AssertionError(f"range_partition differs from its plain "
+                             f"version on {label}")
+    s, n, n_spl = len(pks), pks[0].shape[0], spl.shape[1]
+    rows = [spl[j] for j in range(s)]
+    flipped_pk = torch.stack([p ^ CK._SIGN64 for p in pks])
     flipped_spl = (spl ^ CK._SIGN64).contiguous()
-    library_ms = device_ms(lambda: torch.searchsorted(
-        flipped_spl, flipped_pk, right=True))
-    kernel_ms_again = device_ms(lambda: CK.range_partition(pk, spl))
-    nbytes = 12 * n + 8 * n_spl  # keys read, destinations written
-    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    print(f"range_partition timing N={n} n_spl={n_spl}: "
-          f"kernel_ms={kernel_ms:.6f} (again {kernel_ms_again:.6f}) "
-          f"plain_ms={plain_ms:.6f} library_ms(torch.searchsorted)="
-          f"{library_ms:.6f} bound_ms={bound_ms:.6f} ({nbytes} bytes at "
-          f"{HBM_BYTES_PER_S / 1e12} TB/s)")
+
+    def one():
+        return CK.range_partition(pks, spl)
+
+    def per_shard():
+        return torch.cat([CK.range_partition(p, r)
+                          for p, r in zip(pks, rows)])
+
+    def library():
+        return torch.searchsorted(flipped_spl, flipped_pk, right=True,
+                                  out_int32=True)
+
+    t = {"ms": device_ms(one), "per_shard_ms": device_ms(per_shard),
+         "library_ms": device_ms(library),
+         "flushed_ms": device_ms(one, flush=True),
+         "per_shard_flushed_ms": device_ms(per_shard, flush=True),
+         "library_flushed_ms": device_ms(library, flush=True),
+         "plain_ms": device_ms(lambda: CK.range_partition_plain(pks, spl)),
+         "ms_again": device_ms(one)}
+    bound = range_bound_ms(s, n, n_spl)
+    print(f"range_partition {label} S={s} N={n} a shard n_spl={n_spl} "
+          f"form={CK.range_partition_form(n_spl)}: bit_identical=True "
+          f"max_abs_diff={err}; one launch {t['ms']:.6f} (again "
+          f"{t['ms_again']:.6f}) ms, flushed {t['flushed_ms']:.6f}; a "
+          f"call a shard + torch.cat {t['per_shard_ms']:.6f}, flushed "
+          f"{t['per_shard_flushed_ms']:.6f}; torch.searchsorted "
+          f"{t['library_ms']:.6f}, flushed {t['library_flushed_ms']:.6f}; "
+          f"plain {t['plain_ms']:.6f}; bound_ms={bound:.6f} "
+          f"({bound / t['ms']:.1%} of it warm, "
+          f"{bound / t['flushed_ms']:.1%} flushed)")
+    return {"S": s, "N": n, "n_spl": n_spl, "max_abs_err": err,
+            "bound_ms": bound, **t}
+
+
+def time_range_calls(calls, label: str):
+    """time_range_call on each captured call of a path."""
+    return [time_range_call(*call, f"({label} call {j + 1} of "
+                                   f"{len(calls)})")
+            for j, call in enumerate(calls)]
+
+
+def time_range_partition(calls, dev):
+    """Hold range_partition against its plain version on every call the
+    1D taxi path made and time each (time_range_call); then one shard of
+    its first call alone, and SHARD_ROWS random keys with 1, 3 and 4095
+    splitters. Returns the first call's row."""
+    import torch
+    timed = time_range_calls(calls, "1D taxi path")
+    pks, spl = calls[0]
+    shard = time_range_call(pks[:1], spl[:1], "(one shard of the 1D taxi "
+                                               "path's call)")
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    pk = torch.randint(-(1 << 63), (1 << 63) - 1, (SHARD_ROWS,),
+                       generator=g, device=dev, dtype=torch.int64)
+    wide = [time_range_call([pk], range_rows(g, [pk], m), "(random keys)")
+            for m in (1, SHARDS - 1, 4095)]
+    row = timed[0]
     return {"name": "range_partition", "route": "cuda",
             "source": "bodo_tpu_torch/csrc/range_partition.cu",
             "replaces": "bodo_tpu/ops/pallas_kernels.py:654",
-            "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": "bytes",
-            "library_ms": library_ms}
+            "max_abs_err": max(c["max_abs_err"] for c in timed),
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": "bytes",
+            "library_ms": row["library_ms"], "taxi_1d_calls": timed,
+            "one_shard": shard, "random_keys": wide}
 
 
 def encode_hybrid(rng, n: int, n_runs: int, bw: int, kind: str):
@@ -1492,8 +1652,9 @@ def run_star_1d(fact, dim, oracle):
     """Drive the star join with shard=True on SHARDS shards of the card,
     on the REP phase's tables: the shuffle join (both sides hashed to
     their key's shard, partition_rank on every shard), the sharded
-    groupby and sort; check it against the numpy oracle. Returns the
-    arguments of every hash_probe call of a later run, for timing."""
+    groupby and sort (range_partition); check it against the numpy
+    oracle. Returns the arguments of every hash_probe and every
+    range_partition call of a later run, for timing."""
     import torch
     from bodo_tpu_torch import relational as R
     from bodo_tpu_torch.ops import cuda_kernels as CK
@@ -1521,14 +1682,17 @@ def run_star_1d(fact, dim, oracle):
     print(f"star path 1D: matches the numpy oracle (g and c exact, s "
           f"rtol={AVG_RTOL})")
     if routes.get("join_shuffle", 0) < 1 or launches["partition_rank"] < 1 \
-            or launches["hash_probe"] < 1:
+            or launches["hash_probe"] < 1 or launches["range_partition"] < 1:
         raise AssertionError(f"star path 1D: shuffle join or its kernels "
                              f"not taken: {routes} {launches}")
     no_f32_accumulate(launches, "star path 1D")
-    # one more run, keeping the inputs of its hash_probe launches
-    with _Capture("hash_probe") as probe:
+    # one more run, keeping the inputs of its hash_probe and
+    # range_partition launches
+    with _Capture("hash_probe") as probe, \
+            _Capture("range_partition") as rp:
         S.pipeline(fact, dim, shard=True, n_shards=SHARDS)
-    return probe.calls
+    range_launches_per_pass(launches, rp.calls, "star path 1D")
+    return probe.calls, rp.calls
 
 
 def _rows_matrix(cols):
@@ -1671,8 +1835,8 @@ def run_taxi_1d(trips, weather, rep_got, oracle):
     SHARDS shards, with the counts reset just before and read just
     after; check it against the numpy oracle and, row for row, against
     the REP run's result. Returns (kernel launch counts of that run, the
-    arguments of every partition_rank call, of the first range_partition
-    call and of every hash_probe call of a later run, for timing)."""
+    arguments of every partition_rank, range_partition and hash_probe
+    call of a later run, for timing)."""
     import torch
     from bodo_tpu_torch import relational as R
     from bodo_tpu_torch.ops import cuda_kernels as CK
@@ -1717,6 +1881,7 @@ def run_taxi_1d(trips, weather, rep_got, oracle):
     with _Capture("partition_rank") as pr, \
             _Capture("range_partition") as rp, _Capture("hash_probe") as hp:
         run()
+    range_launches_per_pass(launches, rp.calls, "main path 1D")
     if len(pr.calls) != launches["partition_rank"]:
         raise AssertionError(f"main path 1D: {len(pr.calls)} partition_rank "
                              f"calls in a later run, "
@@ -1725,7 +1890,22 @@ def run_taxi_1d(trips, weather, rep_got, oracle):
         raise AssertionError(f"main path 1D: {len(hp.calls)} hash_probe "
                              f"calls in a later run, "
                              f"{launches['hash_probe']} in the first")
-    return launches, pr.calls, rp.calls[0], hp.calls
+    return launches, pr.calls, rp.calls, hp.calls
+
+
+def range_launches_per_pass(launches, calls, label: str) -> None:
+    """One range_partition call, and so one launch, a sample-sort pass:
+    the calls of a later run (as many as its passes) against the first
+    run's launches."""
+    from bodo_tpu_torch.ops import cuda_kernels as CK
+    if not calls or launches["range_partition"] != len(calls) or any(
+            len(pks) > CK.RANGE_MAX_SHARDS for pks, _ in calls):
+        raise AssertionError(f"{label}: {launches['range_partition']} "
+                             f"range_partition launches, {len(calls)} "
+                             f"calls")
+    print(f"{label}: range_partition {launches['range_partition']} "
+          f"launch(es) in {len(calls)} sample-sort pass(es) over "
+          f"{[len(pks) for pks, _ in calls]} shards: 1 launch a pass")
 
 
 def main() -> int:
@@ -1750,8 +1930,8 @@ def main() -> int:
     print(f"build: {sorted(CK.SOURCES)} in {time.perf_counter() - t0:.2f}s")
     for name, log in sorted(CK.build_logs.items()):
         for line in log.splitlines():
-            if any(w in line for w in ("registers", "spill", "smem",
-                                       "error")):
+            if any(w in line for w in ("entry function", "registers",
+                                       "spill", "smem", "error")):
                 print(f"build {name}: {line.strip()}")
 
     lut = check_lut_gather(dev)
@@ -1777,21 +1957,24 @@ def main() -> int:
     probe = time_hash_probe(probe_args)
     probe["launches"] = star_launches["hash_probe"]
     del probe_args
-    oned_launches, rank_calls, range_args, oned_probes = \
+    oned_launches, rank_calls, range_calls, oned_probes = \
         run_taxi_1d(*taxi_run)
     del taxi_run
     rank = time_partition_rank(rank_calls)
     rank["launches"] = oned_launches["partition_rank"]
-    part = time_range_partition(range_args)
+    part = time_range_partition(range_calls, dev)
     part["launches"] = oned_launches["range_partition"]
     probe["taxi_1d_launches"] = oned_launches["hash_probe"]
     probe["taxi_1d_calls"] = time_probe_calls(oned_probes,
                                               "1D taxi path")
-    del rank_calls, range_args, oned_probes
-    star_probes = run_star_1d(*star_run)
+    del rank_calls, range_calls, oned_probes
+    star_probes, star_ranges = run_star_1d(*star_run)
     del star_run
     probe["star_1d_calls"] = time_probe_calls(star_probes, "1D star path")
-    del star_probes
+    part["star_1d_calls"] = time_range_calls(star_ranges, "1D star path")
+    part["max_abs_err"] = max(part["max_abs_err"], *(
+        c["max_abs_err"] for c in part["star_1d_calls"]))
+    del star_probes, star_ranges
     dense_launches, sparse_launches, acc_args = run_f32_groupby()
     acc = time_groupby_sum(acc_args)
     acc["launches"] = dense_launches["groupby_sum"]

@@ -3,11 +3,16 @@ plain versions on the card, bit for bit: partition_rank for N in {1, 31,
 1000, 4099, 5,000,000, 5,000,067} rows and K in {1, 4, 32, 33, 4096}
 buckets with rows not ok and buckets outside [0, K), views at odd element
 offsets, no row ok, every row in one bucket and two calls back to back
-(they share the kernel's look-back state); range_partition at N =
-5,000,000 for 1, 3 and 4095 splitters with keys whose top bit is set, the
-padding key, splitters equal to keys and duplicated, and an all-padding
-shard's splitters. Marked `cuda`: skips without a GPU. It imports nothing
-of the test harness, so on the card's machine it runs with
+(they share the kernel's look-back state); range_partition in its
+one-tensor form at N = 5,000,000 for 1, 3 and 4095 splitters with keys
+whose top bit is set, the padding key, splitters equal to keys and
+duplicated, and an all-padding shard's splitters; and in its sequence
+form for S in {1, 4, RANGE_MAX_SHARDS + 1} shards, n_spl in {1, 3, the
+small form's bound and one more, 4095, 4096} and N in {1, 3, 4, 5,
+885,504, 5,000,000} keys a shard, the shards contiguous and as views
+off 16-byte alignment, and two calls back to back. Marked `cuda`: skips
+without a GPU. It imports nothing of the test harness, so on the card's
+machine it runs with
 
     python -m pytest --noconftest -m cuda tests/test_torch_gpu_partition.py
 """
@@ -78,3 +83,63 @@ def test_partition_kernels_match_plain_on_gpu():
         got = CK.range_partition(pk.to(dev), sp.to(dev))
         torch.cuda.synchronize()
         assert torch.equal(got.cpu(), want), len(spl)
+    _check_range_partition_shards(torch, CK, dev)
+
+
+def _check_range_partition_shards(torch, CK, dev):
+    """The sequence form on the card against its plain version there."""
+    g = torch.Generator(device=dev).manual_seed(1)
+    small = max(m for m in range(CK.RANGE_MAX_SPLITTERS + 1)
+                if CK.range_partition_form(m) == "small")
+    assert CK.range_partition_form(small + 1) == "large"
+
+    def keys(size):
+        pool = torch.randint(-(1 << 63), (1 << 63) - 1, (size,), generator=g,
+                             device=dev, dtype=torch.int64)
+        pool[::11] = -1  # the padding key; half the rest have the top bit
+        return pool
+
+    def rows(shards, n_spl):
+        out = []
+        for j, k in enumerate(shards):
+            pick = torch.randint(0, k.shape[0], (n_spl,), generator=g,
+                                 device=dev)
+            row = k[pick]  # equal to keys, duplicated when n_spl > N
+            if j == 1:
+                row = torch.full_like(row, -1)  # an all-padding shard
+            out.append(CK._SIGN64 ^ torch.sort(row ^ CK._SIGN64).values)
+        return torch.stack(out)
+
+    def launch(shards, spl):
+        before = CK.launches["range_partition"]
+        got = CK.range_partition(shards, spl)
+        assert CK.launches["range_partition"] == before + -(
+            -len(shards) // CK.RANGE_MAX_SHARDS)
+        return got
+
+    def hold(got, shards, spl, label):
+        want = CK.range_partition_plain(shards, spl)
+        assert got.dtype == torch.int32 and got.shape == want.shape, label
+        assert bool(torch.equal(got, want)), label
+
+    for s in (1, 4, CK.RANGE_MAX_SHARDS + 1):
+        for n in (1, 3, 4, 5, 885_504, 5_000_000):
+            pool = keys(s * (n + 1) + 1)
+            layouts = {"contiguous": [pool[j * n:(j + 1) * n]
+                                      for j in range(s)],
+                       "off alignment": [pool[1 + j * (n + 1):
+                                              1 + j * (n + 1) + n]
+                                         for j in range(s)]}
+            for n_spl in (1, 3, small, small + 1, 4095, 4096):
+                for layout, shards in layouts.items():
+                    spl = rows(shards, n_spl)
+                    hold(launch(shards, spl), shards, spl,
+                         (s, n, n_spl, layout))
+            del pool, layouts
+    a, b = keys(4 * 885_504), keys(4 * 885_504 + 5)
+    sa = [a[j * 885_504:(j + 1) * 885_504] for j in range(4)]
+    sb = [b[5 + j * 885_504:5 + (j + 1) * 885_504] for j in range(4)]
+    spa, spb = rows(sa, 3), rows(sb, 4095)
+    got_a, got_b = launch(sa, spa), launch(sb, spb)  # no sync between
+    hold(got_a, sa, spa, "back to back, first")
+    hold(got_b, sb, spb, "back to back, second")

@@ -134,12 +134,15 @@ def _check_partition_kernels_never_fall_back_off_the_cpu():
             CK.partition_rank(*args, 4)
     pk = torch.zeros(8, dtype=torch.int64)
     spl = torch.zeros(3, dtype=torch.int64)
-    for args in ((pk.to("meta"), spl), (pk, spl.to("meta"))):
+    rows = torch.zeros(2, 3, dtype=torch.int64)
+    for args in ((pk.to("meta"), spl), (pk, spl.to("meta")),
+                 ((pk, pk.to("meta")), rows), ((pk, pk), rows.to("meta"))):
         with pytest.raises(ValueError, match="CUDA"):
             CK.range_partition(*args)
     rank, counts = CK.partition_rank(dest, ok, 4)  # all on the CPU
     assert rank.tolist() == list(range(8)) and counts.tolist() == [8, 0, 0, 0]
     assert CK.range_partition(pk, spl).tolist() == [3] * 8
+    assert CK.range_partition((pk, pk), rows).tolist() == [3] * 16
     assert CK.launches == before
 
 

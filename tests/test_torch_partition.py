@@ -8,7 +8,10 @@
     (interpret=True) and jnp.searchsorted over uint64, with the traps of
     unsigned order: keys with the top bit set, the padding key
     0xFFFFFFFFFFFFFFFF, splitters equal to keys, duplicated splitters,
-    1 and 4095 splitters, and an all-padding shard's splitters;
+    1 and 4095 splitters, and an all-padding shard's splitters; and its
+    sequence form (S shards, one splitter row each, S in {1, 2, 4})
+    against the per-shard plain calls concatenated and the Pallas kernel
+    run on each shard;
   - `bucket_rows` and `shuffle_rows` against the reference's inside
     `C.smap` on CPU meshes of 2 and 4 shards, with a bucket capacity
     small enough to overflow.
@@ -109,6 +112,26 @@ def _check_range_partition():
     empty = CK.range_partition_plain(torch.tensor([0, -1]),
                                      torch.zeros(0, dtype=torch.int64))
     assert empty.tolist() == [0, 0]
+    # the sequence form: S shards of one length, a row of splitters each
+    (keys, _), = _u64_cases(r)[:1]
+    n, n_spl = 250, 3
+    for s in (1, 2, 4):
+        shards = [keys[i * n:(i + 1) * n] for i in range(s)]
+        rows = np.stack([np.sort(r.choice(keys, n_spl)) for _ in range(s)])
+        if s > 1:
+            rows[-1] = PAD                 # an all-padding shard's row
+        tshards = [torch.from_numpy(k.view(np.int64)) for k in shards]
+        trows = torch.from_numpy(rows.view(np.int64))
+        got = CK.range_partition_plain(tshards, trows)
+        assert got.dtype == torch.int32 and got.shape == (s * n,)
+        per_shard = torch.cat([CK.range_partition_plain(k, row)
+                               for k, row in zip(tshards, trows)])
+        assert torch.equal(got, per_shard)
+        assert torch.equal(CK.range_partition(tshards, trows), got)
+        want = np.concatenate([np.asarray(PK.range_partition(
+            jnp.asarray(k), jnp.asarray(row), interpret=True))
+            for k, row in zip(shards, rows)])
+        np.testing.assert_array_equal(got.numpy(), want)
 
 
 def _shard_inputs(r, s, cap):
