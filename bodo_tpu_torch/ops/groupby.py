@@ -1,14 +1,19 @@
 """Groupby aggregation kernels.
 
-Counterpart of bodo_tpu/ops/groupby.py for the routes of the one-GPU
-relational path: segment reductions (`_segment_agg`) for size, count,
-sum and mean; the scatter-claim hash groupby (`groupby_local_hashed`,
-and `groupby_local_hashed_static` for the partial stage of the two-phase
-sharded groupby), whose f32 sums, counts and means over at most 4096
-groups take the `groupby_sum` kernel (`cuda_kernels.dense_accumulate`);
-and the sort-based `groupby_local` that the JAX
-package itself takes when the hash route does not resolve. Other
-aggregations raise NotImplementedError until a later slice ports them.
+Counterpart of bodo_tpu/ops/groupby.py for the decomposable
+aggregations: segment reductions (`_segment_agg`) for size, count, sum,
+sumnull, sum64, prod, min, max, first, last, mean, var, std, var0, std0
+and the centered moments m2, m3, m4 with skew and kurt; the composite
+combines chan_m2, chan_m3 and chan_m4 of the two-phase sharded groupby
+(`groupby_local`); the scatter-claim hash groupby
+(`groupby_local_hashed`, and `groupby_local_hashed_static` for the
+partial stage of the two-phase sharded groupby), whose f32 sums, counts
+and means over at most 4096 groups take the `groupby_sum` kernel
+(`cuda_kernels.dense_accumulate`); and the sort-based `groupby_local`
+that the JAX package itself takes when the hash route does not resolve.
+
+Still refused with NotImplementedError: the quantiles (`_quantile_seg`),
+`_nunique`, `_mode` and aggregation over decimals.
 """
 
 from __future__ import annotations
@@ -25,19 +30,20 @@ from bodo_tpu_torch.ops import sort_encoding as SE
 from bodo_tpu_torch.ops.sort import lexsort_perm
 from bodo_tpu_torch.table import dtypes as dt
 
-# ops the JAX package's hash route accepts (its gate, kept so both
-# packages take the same route); of these the port computes _PORTED
+# ops the JAX package's hash route accepts: everything _segment_agg
+# computes from (segment ids, values) alone
 HASH_OPS = frozenset({
     "count", "size", "sum", "sumnull", "sum64", "prod", "min", "max",
     "first", "last", "mean", "var", "std", "var0", "std0",
     "m2", "m3", "m4", "skew", "kurt",
 })
-_PORTED = ("count", "size", "sum", "mean")
+# the ops the port's _segment_agg computes: all of them
+_PORTED = HASH_OPS
 
 # final op -> partial ops of the two-phase sharded groupby, and partial
-# op -> its combine op (the JAX package's tables, kept whole so both
-# packages route the same aggregations to the two-phase groupby; the
-# port computes the _PORTED ones)
+# op -> its combine op (the JAX package's tables). The composite combines
+# chan_m2/chan_m3/chan_m4 read the preceding partial columns, so the
+# order of _VAR_PARTS, _SKEW_PARTS and _KURT_PARTS is load-bearing.
 _VAR_PARTS = ["count", "sum64", "m2"]
 _SKEW_PARTS = ["count", "sum64", "m2", "m3"]
 _KURT_PARTS = ["count", "sum64", "m2", "m3", "m4"]
@@ -59,13 +65,17 @@ def result_dtype(op: str, d: np.dtype) -> np.dtype:
     d = np.dtype(d)
     if op in ("count", "size"):
         return np.dtype(np.int64)
-    if op == "mean":
+    if op in ("sum64", "m2", "m3", "m4", "skew", "kurt"):
+        return np.dtype(np.float64)  # the moments accumulate in f64
+    if op in ("mean", "var", "std", "var0", "std0"):
         return np.dtype(np.float32) if d == np.float32 \
             else np.dtype(np.float64)
-    if op == "sum":
+    if op in ("sum", "sumnull", "prod"):
         if d.kind == "f":
             return d
         return np.dtype(np.uint64) if d.kind == "u" else np.dtype(np.int64)
+    if op in ("min", "max", "first", "last"):
+        return d
     raise NotImplementedError(f"aggregation {op!r} is not ported yet")
 
 
@@ -76,21 +86,99 @@ def agg_dtype(op: str, src: dt.DType) -> dt.DType:
     if dt.is_decimal(src):
         raise NotImplementedError(
             f"aggregation {op!r} over decimals is not ported yet")
+    if op in ("min", "max", "first", "last"):
+        return src
     return dt.from_numpy(result_dtype(op, src.numpy))
+
+
+def _seg_index(seg, n: int):
+    """Segment ids with those outside [0, n) sent to the spare slot n."""
+    return torch.where((seg >= 0) & (seg < n), seg, n).to(torch.int64)
 
 
 def segment_sum(x, seg, n: int):
     """Sum of `x` per segment id in [0, n); other ids are dropped (the
     out-of-range rule of jax.ops.segment_sum)."""
-    idx = torch.where((seg >= 0) & (seg < n), seg, n).to(torch.int64)
     out = torch.zeros(n + 1, dtype=x.dtype, device=x.device)
-    return out.index_add_(0, idx, x)[:n]
+    return out.index_add_(0, _seg_index(seg, n), x)[:n]
+
+
+def _segment_reduce(x, seg, n: int, reduce: str, init):
+    """amin, amax or prod of `x` per segment id in [0, n), starting from
+    `init` (the identity, which an empty segment keeps); other ids are
+    dropped."""
+    out = torch.full((n + 1,), init, dtype=x.dtype, device=x.device)
+    return out.scatter_reduce_(0, _seg_index(seg, n), x, reduce)[:n]
+
+
+_SIGN = -(1 << 63)
+
+
+def _widened(v, rdt: torch.dtype):
+    """`v` in the accumulator type `rdt` of a sum or product. Unsigned
+    accumulators run as int64 with the same low 64 bits (uint64 keeps
+    its bits), so sums and products wrap modulo 2^64 as the unsigned
+    ones do: torch has no uint64 scatter arithmetic."""
+    if rdt != torch.uint64:
+        return v.to(rdt)
+    return v.view(torch.int64) if v.dtype == torch.uint64 \
+        else v.to(torch.int64)
+
+
+def _from_bits(x, rdt: torch.dtype):
+    return x.view(torch.uint64) if rdt == torch.uint64 else x
+
+
+def _ordered(v):
+    """(w, back): `v` in a dtype that scatter_reduce_ orders as `v`'s
+    values (bool as uint8, uint16/32 widened, uint64 with its sign bit
+    flipped), and the map back to `v`'s dtype."""
+    if v.dtype == torch.bool:
+        return v.to(torch.uint8), lambda w: w.to(torch.bool)
+    if v.dtype == torch.uint64:
+        return (v.view(torch.int64) ^ _SIGN,
+                lambda w: (w ^ _SIGN).view(torch.uint64))
+    if v.dtype in (torch.uint16, torch.uint32):
+        return v.to(torch.int64), lambda w: w.to(v.dtype)
+    return v, lambda w: w
+
+
+def _min_max_ident(op: str, v):
+    """The identity of min or max over `v`'s dtype, in `_ordered`'s
+    domain: +-inf, the integer type's limits, True or False."""
+    if v.is_floating_point():
+        return float("inf") if op == "min" else float("-inf")
+    if v.dtype == torch.bool:
+        return int(op == "min")
+    info = np.iinfo(_np_dtype(v))
+    ident = int(info.max if op == "min" else info.min)
+    return ident + _SIGN if v.dtype == torch.uint64 else ident
+
+
+def _centered(v, ok, seg, cnt, n: int):
+    """Per row, x - mean(x's segment) in f64 over the ok rows, 0
+    elsewhere (the reference's two-pass moments)."""
+    x = v.to(torch.float64)
+    s = segment_sum(torch.where(ok, x, 0.0), seg, n)
+    mean = s / cnt.clamp(min=1).to(torch.float64)
+    # ids outside [0, n) are on rows that are not ok; clamp the gather
+    # as a jax gather does
+    return torch.where(ok, x - mean[seg.clamp(0, n - 1).to(torch.int64)],
+                       0.0)
 
 
 def _segment_agg(op: str, v, valid, seg, padmask, out_cap: int):
-    """One primitive aggregation. Returns (data, valid)."""
+    """One primitive aggregation over values in the order the segment
+    ids' route gives them (sorted on the sort route, the table's rows on
+    the hashed and dense routes). Returns (data, valid)."""
+    if op in ("nunique", "mode"):
+        raise NotImplementedError(
+            f"{op} (the sort groupby's _{op}) is not ported yet")
+    if op.startswith("q:"):
+        raise NotImplementedError("the groupby quantile (_quantile_seg) is "
+                                  "not ported yet")
     if op not in _PORTED:
-        raise NotImplementedError(f"aggregation {op!r} is not ported yet")
+        raise ValueError(f"unknown agg op: {op}")
     ok = K.value_ok(v, valid, padmask)
     cnt = segment_sum(ok.to(torch.int64), seg, out_cap)
     if op == "count":
@@ -98,11 +186,92 @@ def _segment_agg(op: str, v, valid, seg, padmask, out_cap: int):
     if op == "size":
         return segment_sum(padmask.to(torch.int64), seg, out_cap), None
     rdt = dt.TORCH_OF[result_dtype(op, _np_dtype(v)).name]
-    s = segment_sum(torch.where(ok, v.to(rdt), 0).to(rdt), seg, out_cap)
-    if op == "sum":
-        return s, None
-    m = s / cnt.clamp(min=1)
-    return torch.where(cnt > 0, m, float("nan")).to(rdt), None
+    if op in ("sum", "sumnull", "sum64", "mean"):
+        x = _widened(v, rdt)
+        s = _from_bits(segment_sum(torch.where(ok, x, 0).to(x.dtype), seg,
+                                   out_cap), rdt)
+        if op == "sumnull":  # SQL: SUM over an all-null group is NULL
+            return s, cnt > 0
+        if op != "mean":
+            return s, None  # pandas: sum over all-null = 0
+        m = s / cnt.clamp(min=1)
+        return torch.where(cnt > 0, m, float("nan")).to(rdt), None
+    if op == "prod":
+        x = _widened(v, rdt)
+        p = _segment_reduce(torch.where(ok, x, 1).to(x.dtype), seg, out_cap,
+                            "prod", 1)
+        return _from_bits(p, rdt), None
+    if op in ("min", "max"):
+        w, back = _ordered(v)
+        ident = _min_max_ident(op, v)
+        w = torch.where(ok, w, torch.full((), ident, dtype=w.dtype,
+                                          device=w.device))
+        out = _segment_reduce(w, seg, out_cap, "a" + op, ident)
+        return back(out), cnt > 0
+    if op in ("first", "last"):
+        cap = v.shape[0]
+        pos = torch.arange(cap, device=v.device)
+        if op == "first":
+            idx = _segment_reduce(torch.where(ok, pos, cap), seg, out_cap,
+                                  "amin", cap)
+        else:
+            idx = _segment_reduce(torch.where(ok, pos, -1), seg, out_cap,
+                                  "amax", -1)
+        has = (idx >= 0) & (idx < cap)
+        out = v[idx.clamp(0, cap - 1)]
+        return torch.where(has, out, torch.zeros((), dtype=v.dtype,
+                                                 device=v.device)), has
+    d = _centered(v, ok, seg, cnt, out_cap)
+    m2 = segment_sum(d * d, seg, out_cap)
+    if op in ("var", "std", "var0", "std0"):
+        out = _var_from_m2(m2, cnt, ddof=0 if op.endswith("0") else 1)
+        if op.startswith("std"):
+            out = torch.sqrt(out)
+        return out.to(rdt), None
+    if op == "m2":
+        return m2, None
+    m3 = segment_sum(d * d * d, seg, out_cap)
+    if op == "m3":
+        return m3, None
+    if op == "skew":
+        return _skew_from_moments(cnt, m2, m3), None
+    m4 = segment_sum(d * d * d * d, seg, out_cap)
+    if op == "m4":
+        return m4, None
+    return _kurt_from_moments(cnt, m2, m4), None
+
+
+def _var_from_m2(m2, cnt, ddof: int = 1):
+    """Variance from the centered second moment M2 = sum((x - mean)^2);
+    NaN where the count is not above ddof."""
+    var = m2 / (cnt.to(m2.dtype) - ddof).clamp(min=1)
+    return torch.where(cnt > ddof, var.clamp(min=0), float("nan"))
+
+
+def _skew_from_moments(cnt, m2, m3):
+    """pandas-adjusted (Fisher-Pearson) skew from centered moments:
+    g1 * sqrt(n(n-1))/(n-2) with g1 = (M3/n)/(M2/n)^1.5. As pandas'
+    nanskew: NaN for n < 3, 0 for a constant group (M2 == 0)."""
+    n = cnt.to(torch.float64)
+    safe_m2 = m2.clamp(min=1e-300)
+    n1 = n.clamp(min=1)
+    g1 = (m3 / n1) / (safe_m2 / n1) ** 1.5
+    adj = torch.sqrt(n * (n - 1)) / (n - 2).clamp(min=1)
+    out = torch.where(m2 > 0, g1 * adj, 0.0)
+    return torch.where(cnt >= 3, out, float("nan"))
+
+
+def _kurt_from_moments(cnt, m2, m4):
+    """pandas-adjusted (Fisher, excess) kurtosis from centered moments:
+    n(n+1)(n-1) M4 / ((n-2)(n-3) M2^2) - 3(n-1)^2/((n-2)(n-3)). As
+    pandas' nankurt: NaN for n < 4, 0 for a constant group (M2 == 0)."""
+    n = cnt.to(torch.float64)
+    safe_m2 = m2.clamp(min=1e-300)
+    den = ((n - 2) * (n - 3)).clamp(min=1)
+    out = n * (n + 1) * (n - 1) * m4 / (den * safe_m2 * safe_m2) \
+        - 3.0 * (n - 1) * (n - 1) / den
+    out = torch.where(m2 > 0, out, 0.0)
+    return torch.where(cnt >= 4, out, float("nan"))
 
 
 def _accumulated(op: str, sums, cnt_idx: int, s_idx):
@@ -170,11 +339,53 @@ def groupby_local(arrays, count: int, specs: Tuple[str, ...],
         z[dst] = data[perm]
         out_keys.append((z[:out_capacity], None))
     out_vals = []
-    for (data, valid), op in zip(values, specs):
-        out_vals.append(_segment_agg(
-            op, data[perm], None if valid is None else valid[perm], seg,
-            padmask_s, out_capacity))
+    for i, ((data, valid), op) in enumerate(zip(values, specs)):
+        valid_s = None if valid is None else valid[perm]
+        if op.startswith("chan_"):
+            out_vals.append(_chan_combine(op, values, i, perm, valid_s, seg,
+                                          padmask_s, out_capacity))
+        else:
+            out_vals.append(_segment_agg(op, data[perm], valid_s, seg,
+                                         padmask_s, out_capacity))
     return tuple(out_keys), tuple(out_vals), n_groups
+
+
+def _chan_combine(op: str, values, i: int, perm, valid_s, seg, padmask_s,
+                  out_cap: int):
+    """The exact delta-form Chan combine of per-shard partial rows
+    (count n, sum s, centered moments) for value column i; with
+    d = mean_i - mean of the group:
+      M2 = sum m2_i + n_i d^2
+      M3 = sum m3_i + 3 d m2_i + n_i d^3
+      M4 = sum m4_i + 4 d m3_i + 6 d^2 m2_i + n_i d^4
+    It reads the preceding partial columns in the order _VAR_PARTS,
+    _SKEW_PARTS and _KURT_PARTS pin: (count, sum64, m2[, m3])."""
+    back = {"chan_m2": 2, "chan_m3": 3, "chan_m4": 4}[op]
+
+    def col(j):
+        return values[j][0][perm].to(torch.float64)
+
+    n_s, s_s = col(i - back), col(i - back + 1)
+    mk_s = col(i)
+    okr = K.value_ok(mk_s, valid_s, padmask_s)
+    n_tot = segment_sum(torch.where(okr, n_s, 0.0), seg, out_cap)
+    s_tot = segment_sum(torch.where(okr, s_s, 0.0), seg, out_cap)
+    mean = s_tot / n_tot.clamp(min=1.0)
+    d = s_s / n_s.clamp(min=1.0) - mean[seg.clamp(0, out_cap - 1)]
+    if op == "chan_m2":
+        # the reference sums the cross term and the m2 column apart
+        cross = segment_sum(torch.where(okr, n_s * d * d, 0.0), seg,
+                            out_cap)
+        m2 = segment_sum(torch.where(okr, mk_s, 0.0), seg, out_cap)
+        return m2 + cross, None
+    m2_s = col(i - back + 2)
+    if op == "chan_m3":
+        term = mk_s + 3.0 * d * m2_s + n_s * d * d * d
+    else:
+        m3_s = col(i - 1)
+        term = mk_s + 4.0 * d * m3_s + 6.0 * d * d * m2_s \
+            + n_s * d * d * d * d
+    return segment_sum(torch.where(okr, term, 0.0), seg, out_cap), None
 
 
 # ---------------------------------------------------------------------------

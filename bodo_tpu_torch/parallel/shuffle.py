@@ -27,7 +27,9 @@ from bodo_tpu_torch.config import config
 from bodo_tpu_torch.ops import cuda_kernels as CK
 from bodo_tpu_torch.ops import kernels as K
 from bodo_tpu_torch.ops.groupby import (COMBINE_OF, DECOMPOSE, HASH_OPS,
-                                        _np_dtype, groupby_local,
+                                        _kurt_from_moments, _np_dtype,
+                                        _skew_from_moments, _var_from_m2,
+                                        groupby_local,
                                         groupby_local_hashed_static,
                                         result_dtype)
 from bodo_tpu_torch.ops.hashing import dest_shard, hash_columns
@@ -147,14 +149,26 @@ def _plan_decomposition(specs: Tuple[str, ...]):
 
 
 def _finalize(op: str, cols, orig_dtype: np.dtype):
-    """The final column from the combined partial columns."""
+    """The final column from the combined partial columns (laid out as
+    DECOMPOSE gives them)."""
     if op == "mean":
         (s, _), (cnt, _) = cols
         rdt = getattr(torch, result_dtype("mean", orig_dtype).name)
         m = s.to(rdt) / cnt.clamp(min=1).to(rdt)
         return torch.where(cnt > 0, m, float("nan")).to(rdt), None
-    if len(cols) != 1:
-        raise NotImplementedError(f"aggregation {op!r} is not ported yet")
+    if op in ("var", "std", "var0", "std0"):
+        # (n, sum, M2), M2 merged by the chan_m2 combine
+        (cnt, _), _s, (m2, _) = cols
+        rdt = getattr(torch, result_dtype(op, orig_dtype).name)
+        out = _var_from_m2(m2, cnt, ddof=0 if op.endswith("0") else 1)
+        return (torch.sqrt(out) if op.startswith("std") else out).to(rdt), \
+            None
+    if op == "skew":
+        (cnt, _), _s, (m2, _), (m3, _) = cols
+        return _skew_from_moments(cnt, m2, m3), None
+    if op == "kurt":
+        (cnt, _), _s, (m2, _), _m3, (m4, _) = cols
+        return _kurt_from_moments(cnt, m2, m4), None
     return cols[0]
 
 

@@ -17,10 +17,17 @@ everything else runs per shard. The gates are the JAX package's, checked
 in the same order, so both packages take the same route on the same
 data.
 
+`groupby_agg` takes the decomposable aggregations (ops/groupby.py) on
+every route, and `reduce_table` reduces whole columns to host scalars
+(REP and 1D).
+
 Where the JAX package would go on to a route the port has not ported
 (the cross join, the colocated groupby of non-decomposable aggregations
-on 1D tables, the skew-split join, concat_tables) the port raises
-NotImplementedError naming it.
+on 1D tables, the skew-split join, concat_tables; the groupby's
+quantiles `_quantile_seg`, `_nunique`, `_mode` and
+`_groupby_agg_with_listagg`; the whole-column `_reduce_quantile`;
+aggregation over decimals) the port raises NotImplementedError naming
+it.
 
 `route_counts` counts the routes taken, so tests and the chip smoke can
 show which one ran.
@@ -38,7 +45,9 @@ from bodo_tpu_torch.ops import cuda_kernels as CK
 from bodo_tpu_torch.ops import hashtable as HT
 from bodo_tpu_torch.ops import kernels as K
 from bodo_tpu_torch.ops.groupby import (DECOMPOSE, HASH_OPS, _accumulated,
-                                        _segment_agg, agg_dtype,
+                                        _from_bits, _min_max_ident,
+                                        _np_dtype, _ordered, _segment_agg,
+                                        _widened, agg_dtype, result_dtype,
                                         groupby_local, groupby_local_hashed,
                                         segment_sum)
 from bodo_tpu_torch.ops.hashing import dest_shard, hash_columns
@@ -232,8 +241,8 @@ def filter_table(t: Table, predicate: Expr) -> Table:
 
 def _min_max(t: Table, names: Sequence[str]) -> Dict[str, Optional[tuple]]:
     """Exact (min, max) of each named integer/date column over its valid
-    rows, None for a column without one (the JAX package's
-    `reduce_table` min/max, restricted to what the planners ask)."""
+    rows, None for a column without one (reduce_table's min and max
+    partials, restricted to what the planners ask)."""
     if t.nrows == 0:
         return {k: (0, 0) for k in names}
     padmask = _padmask(t)
@@ -241,19 +250,13 @@ def _min_max(t: Table, names: Sequence[str]) -> Dict[str, Optional[tuple]]:
     out = {}
     for k in names:
         c = t.column(k)
-        ok = K.value_ok(c.data, c.valid, padmask)
-        # each shard's min and max, then min and max over the shards
-        los, his = [], []
-        for d, o in zip(C.shard_views(c.data, s), C.shard_views(ok, s)):
-            vals = d[o]
-            if vals.numel():
-                los.append(vals.min())
-                his.append(vals.max())
-        if not los:
+        if not int(_reduce_partial("count", c.data, c.valid, padmask,
+                                   s).sum()):
             out[k] = None
             continue
-        lo = C.dist_min(torch.stack(los))
-        hi = C.dist_max(torch.stack(his))
+        # a shard without a valid row gives the identity, which loses
+        lo = C.dist_min(_reduce_partial("min", c.data, c.valid, padmask, s))
+        hi = C.dist_max(_reduce_partial("max", c.data, c.valid, padmask, s))
         lo, hi = torch.stack([lo, hi]).tolist()
         out[k] = (int(lo), int(hi))
     return out
@@ -403,9 +406,9 @@ def groupby_agg(t: Table, keys: Sequence[str],
     scatter-claim hash groupby (REP); the two-phase sharded groupby (1D);
     the full sort (REP)."""
     keys = list(keys)
-    if any(op == "median" or op.startswith(("quantile_", "listagg"))
-           for _, op, _ in aggs):
-        raise NotImplementedError("median/quantile/listagg groupby is not "
+    if any(op.startswith("listagg") for _, op, _ in aggs):
+        raise NotImplementedError("the listagg groupby "
+                                  "(_groupby_agg_with_listagg) is not "
                                   "ported yet")
     local = _as_local(t)
     if local is not None:
@@ -416,6 +419,13 @@ def groupby_agg(t: Table, keys: Sequence[str],
         raise NotImplementedError(
             "the colocated groupby of 1D tables (_groupby_agg_colocated, "
             "for aggregations that do not decompose) is not ported yet")
+    for _, op, _ in aggs:
+        if op == "median" or op.startswith(("quantile_", "q:")):
+            raise NotImplementedError("the groupby quantile (_quantile_seg) "
+                                      "is not ported yet")
+        if op in ("nunique", "mode"):
+            raise NotImplementedError(
+                f"{op} (the sort groupby's _{op}) is not ported yet")
     dense_ok = (t.distribution == REP and config.dense_groupby_max_slots > 0
                 and not any(op in ("nunique", "mode") or op.startswith("q:")
                             for _, op, _ in aggs))
@@ -628,6 +638,142 @@ def _groupby_agg_dense(t: Table, keys, aggs, ranges) -> Table:
     for (cname, op, oname), (vd, vv) in zip(aggs, out_vals):
         cols[oname] = _agg_out_col(t.column(cname), op, vd, vv)
     return shrink_to_fit(Table(cols, ng))
+
+
+# ---------------------------------------------------------------------------
+# whole-column reductions
+# ---------------------------------------------------------------------------
+
+# op -> the per-shard partials its host combine reads
+_REDUCE_PARTIALS = {"sum": ("sum",), "sumnull": ("sum", "count"),
+                    "count": ("count",), "size": ("size",),
+                    "min": ("min", "count"), "max": ("max", "count"),
+                    "mean": ("sum", "count"),
+                    "var": ("sum", "m2", "count"),
+                    "std": ("sum", "m2", "count"),
+                    "var0": ("sum", "m2", "count"),
+                    "std0": ("sum", "m2", "count"),
+                    "prod": ("prod",)}
+
+
+def _reduce_partial(p: str, d, v, padmask, s: int):
+    """One partial of one column per shard: a tensor [s]."""
+    ok = K.value_ok(d, v, padmask).reshape(s, -1)
+    if p == "count":
+        return ok.sum(1)
+    if p == "size":
+        return padmask.reshape(s, -1).sum(1)
+    d = d.reshape(s, -1)
+    if p in ("sum", "prod"):
+        # exact in the widened source family: f64, or int64 bits that
+        # wrap modulo 2^64 (uint64 as the unsigned bits)
+        acc = torch.float64 if d.is_floating_point() else \
+            dt.TORCH_OF[result_dtype("sum", _np_dtype(d)).name]
+        x = _widened(d, acc)
+        if p == "sum":
+            return _from_bits(torch.where(ok, x, 0).to(x.dtype).sum(1), acc)
+        return _from_bits(torch.where(ok, x, 1).to(x.dtype).prod(1), acc)
+    if p == "m2":
+        # the centered second moment in f64 (Chan-combined on the host)
+        x = d.to(torch.float64)
+        n = ok.sum(1).clamp(min=1).to(torch.float64)
+        mean = torch.where(ok, x, 0.0).sum(1) / n
+        dd = torch.where(ok, x - mean[:, None], 0.0)
+        return (dd * dd).sum(1)
+    # min / max, keeping the source dtype
+    w, back = _ordered(d)
+    ident = _min_max_ident(p, d)
+    w = torch.where(ok, w, torch.full((), ident, dtype=w.dtype,
+                                      device=w.device))
+    return back(w.amin(1) if p == "min" else w.amax(1))
+
+
+def reduce_table(t: Table, aggs: Sequence[Tuple[str, str, str]]) -> Dict:
+    """Whole-column reductions to host scalars (Series.sum() and the
+    like); aggs = [(column, op, out_name)].
+
+    Each shard reduces its rows to partials, which combine on the host
+    as the two-phase groupby's do. first, last, skew and kurt have no
+    scalar partial: they run as a groupby on a constant key `__one`.
+    Integer products wrap modulo 2^64, as pandas' do (the JAX package
+    takes them in f64)."""
+    if any(op == "median" or op.startswith("quantile_")
+           for _, op, _ in aggs):
+        raise NotImplementedError("the whole-column quantile "
+                                  "(_reduce_quantile) is not ported yet")
+    gaggs = [(c, op, o) for c, op, o in aggs if op not in _REDUCE_PARTIALS]
+    if gaggs:
+        rest = [(c, op, o) for c, op, o in aggs if op in _REDUCE_PARTIALS]
+        out = reduce_table(t, rest) if rest else {}
+        tk = t.with_columns(t.columns)
+        tk.columns["__one"] = Column(
+            torch.zeros(t.capacity, dtype=torch.int32, device=t.device),
+            None, dt.INT32)
+        gp = groupby_agg(tk, ["__one"], gaggs).to_pandas()
+        for _, _, o in gaggs:
+            out[o] = gp[o].iloc[0] if len(gp) else None
+        return out
+    for c, op, _ in aggs:
+        agg_dtype(op, t.column(c).dtype)  # refuses decimals
+    padmask = _padmask(t)
+    s = t.num_shards
+    out = {}
+    for col, op, oname in aggs:
+        c = t.column(col)
+        block = {p: _reduce_partial(p, c.data, c.valid, padmask, s)
+                 .cpu().numpy() for p in _REDUCE_PARTIALS[op]}
+        cnt = int(block["count"].sum()) if "count" in block else None
+        if op in ("sum", "sumnull"):
+            v = block["sum"].sum() if op == "sum" or cnt else np.nan
+        elif op == "prod":
+            v = np.prod(block["prod"])
+        elif op in ("count", "size"):
+            v = int(block[op].sum())
+        elif op in ("min", "max"):
+            if cnt == 0:
+                out[oname] = np.nan
+                continue
+            v = block[op].min() if op == "min" else block[op].max()
+        elif op == "mean":
+            v = float(block["sum"].sum()) / cnt if cnt else np.nan
+        else:  # var, std, var0, std0
+            ddof = 0 if op.endswith("0") else 1
+            if cnt > ddof:
+                # the exact delta-form Chan combine of per-shard moments
+                n_i = block["count"].astype(np.float64)
+                s_i = block["sum"].astype(np.float64)
+                mean_i = s_i / np.maximum(n_i, 1)
+                m2 = block["m2"].sum() + \
+                    (n_i * (mean_i - s_i.sum() / cnt) ** 2).sum()
+                v = max(m2 / (cnt - ddof), 0.0)
+                if op.startswith("std"):
+                    v = float(np.sqrt(v))
+            else:
+                v = np.nan
+        out[oname] = _reduce_scalar(v, op, c.dtype)
+    return out
+
+
+def _reduce_scalar(v, op: str, src: dt.DType):
+    """A host reduction result as its logical scalar type."""
+    import pandas as pd
+    if op in ("count", "size"):
+        return int(v)
+    if op in ("min", "max"):
+        if src is dt.DATETIME:
+            return pd.Timestamp(int(v))
+        if src is dt.TIMEDELTA:
+            return pd.Timedelta(int(v))
+        if src is dt.DATE:
+            return (np.datetime64(0, "D") + int(v)).astype("datetime64[D]")
+        if src.kind in ("i", "u"):
+            return int(v)
+        if src.kind == "b":
+            return bool(v)
+        return float(v)
+    if op in ("sum", "sumnull", "prod") and src.kind in ("i", "u", "b"):
+        return int(v) if not (isinstance(v, float) and np.isnan(v)) else v
+    return float(v)
 
 
 # ---------------------------------------------------------------------------

@@ -115,6 +115,21 @@ def pipeline(trips, weather, device=None, shard: bool = False,
 
 def _pipeline(trips, weather):
     from bodo_tpu_torch import relational as R
+
+    out = R.groupby_agg(joined(trips, weather), KEYS, [
+        ("hvfhs_license_num", "count", "trip_count"),
+        ("trip_miles", "mean", "avg_miles"),
+    ])
+    return R.sort_table(out, KEYS)
+
+
+def joined(trips, weather):
+    """The pipeline's table before its groupby: the trips with their
+    datetime fields, joined on the date with the weather, with the
+    derived bool and bucket columns (the six KEYS among them). `trips`
+    and `weather` are port Tables; a 1D `trips` gives a 1D table (call
+    it under the mesh `trips` is sharded over)."""
+    from bodo_tpu_torch import relational as R
     from bodo_tpu_torch.plan.expr import ColRef as c, DtField, IsIn, Lit, Where
 
     weather = R.assign_columns(weather, {
@@ -143,20 +158,16 @@ def _pipeline(trips, weather):
                     Where(IsIn(h, (19, 20, 21)),
                           Lit(code(TIME_BUCKETS, "evening")),
                           Lit(code(TIME_BUCKETS, "other"))))))
-    m = R.assign_categorical(m, "time_bucket", bucket_codes, TIME_BUCKETS)
-
-    out = R.groupby_agg(m, KEYS, [
-        ("hvfhs_license_num", "count", "trip_count"),
-        ("trip_miles", "mean", "avg_miles"),
-    ])
-    return R.sort_table(out, KEYS)
+    return R.assign_categorical(m, "time_bucket", bucket_codes,
+                                TIME_BUCKETS)
 
 
-def numpy_pipeline(trips: Dict[str, np.ndarray],
-                   weather: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
-    """The workload in numpy alone (arrays as `gen_taxi_arrays` returns
-    them): the groupby is a bincount over the mixed-radix slot id of the
-    six keys, the final order an np.lexsort of the keys."""
+def numpy_joined(trips: Dict[str, np.ndarray],
+                 weather: Dict[str, np.ndarray]):
+    """`joined` in numpy alone (arrays as `gen_taxi_arrays` returns them),
+    in the trips' row order: (the six keys as int64 arrays, time_bucket
+    as its code in the sorted bucket names; the trips' rows kept by the
+    inner join as a bool mask)."""
     ns = trips["pickup_datetime"].view(np.int64)
     day = ns // _NS_PER_DAY
     month = (trips["pickup_datetime"].astype("datetime64[M]")
@@ -177,12 +188,30 @@ def numpy_pipeline(trips: Dict[str, np.ndarray],
     cols = [trips["PULocationID"][hit], trips["DOLocationID"][hit],
             month[hit], weekday[hit].astype(np.int64),
             (prcp[hit] > 0.1).astype(np.int64), hour_bucket[hour[hit]]]
+    return cols, hit
+
+
+def slot_ids(cols):
+    """The mixed-radix slot id of each row's keys (first key most
+    significant, so slot order is the keys' lexicographic order), with
+    the (lo, size) of each key."""
     los = [int(k.min()) if len(k) else 0 for k in cols]
     sizes = [int(k.max()) - lo + 1 if len(k) else 1
              for k, lo in zip(cols, los)]
     slot = np.zeros(len(cols[0]), dtype=np.int64)
     for k, lo, size in zip(cols, los, sizes):
         slot = slot * size + (k - lo)
+    return slot, los, sizes
+
+
+def numpy_pipeline(trips: Dict[str, np.ndarray],
+                   weather: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """The workload in numpy alone (arrays as `gen_taxi_arrays` returns
+    them): the groupby is a bincount over the mixed-radix slot id of the
+    six keys, the final order an np.lexsort of the keys."""
+    cols, hit = numpy_joined(trips, weather)
+    slot, los, sizes = slot_ids(cols)
+    names = np.array(sorted(TIME_BUCKETS))
     n_slots = int(np.prod(sizes))
     count = np.bincount(slot, minlength=n_slots)
     miles = np.bincount(slot, weights=trips["trip_miles"][hit],

@@ -97,9 +97,24 @@ per source, all started together), then:
        traced dense run; groupby_sum is then held against its plain
        version and the float64 sums and timed on the dense run's inputs,
        beside one index_add_ of the same sums;
+     - the decomposable aggregations on the taxi pipeline's joined
+       table at 20,000,000 rows (workloads/taxi_aggs.py), REP (the
+       dense-LUT join, lut_gather once; the dense groupby) and then 1D on
+       4 shards (the broadcast join, the two-phase sharded groupby, the
+       sample sort): min, max, first, last, sumnull, var, std, var0,
+       std0, skew and kurt of trip_miles (float64), min, max and prod of
+       PULocationID (int64), min and max of weekday (bool), grouped by
+       the six keys and then sorted by them, and the same over the whole
+       table through reduce_table, each against pandas on the host
+       (keys, min, max, first, last, prod and the bool results equal;
+       sumnull, var and std within rtol 1e-9; skew and kurt within
+       1e-7 * (1 + |x|)); then the warm stage time of groupby_agg for
+       this spec and for the pipeline's count/mean spec, and of
+       reduce_table, each the median of 5 runs;
      every float64 path above (the taxi paths, the taxi read's
-     pipeline, the star paths, the join matrix) must launch groupby_sum
-     zero times: the reference's gates refuse f64 sums and means;
+     pipeline, the star paths, the aggregations, the join matrix) must
+     launch groupby_sum zero times: the reference's gates refuse f64
+     sums and means and any aggregation but sum, count, size and mean;
   3. runs the taxi pipeline at 20,000 rows, which takes the packed/hashed
      groupby route, against the oracle.
 
@@ -138,6 +153,11 @@ READ_ROW_GROUPS = 20       # 1,048,576-row row groups of 20M rows
 # gate admits (2^24, a multiple of the capacity rounding)
 F32_ROWS = 1 << 24
 SUM_TOL_TEXT = "1e-5 * sum(|x|) per slot"
+# the aggregation phase against pandas: float64 sums and moments with
+# atomics, in another order and by another algorithm (pandas' Welford)
+AGG_RTOL = 1e-9            # sumnull, var, std, var0, std0: relative
+MOMENT_TOL = 1e-7          # skew, kurt: |delta| <= MOMENT_TOL * (1 + |x|)
+STAGE_REPS = 5             # warm stage times: the median of 5 runs
 
 
 def device_ms(fn, reps: int = 20, warmup: int = 3,
@@ -1893,6 +1913,93 @@ def run_taxi_1d(trips, weather, rep_got, oracle):
     return launches, pr.calls, rp.calls, hp.calls
 
 
+def run_aggregations(trips, weather):
+    """The decomposable aggregations on the taxi pipeline's joined table
+    (workloads/taxi_aggs.py) at the REP phase's size: for REP and then 1D
+    on SHARDS shards, with the route and launch counts set to 0 just
+    before and read just after, the join, the groupby by the six keys
+    with WIDE_AGGS (then sorted by them) and reduce_table with the same
+    aggregations, each held to the pandas oracle; then the warm stage
+    time of groupby_agg for WIDE_AGGS and for the pipeline's count/mean
+    spec, and of reduce_table."""
+    import contextlib
+
+    import torch
+    from bodo_tpu_torch import relational as R
+    from bodo_tpu_torch.ops import cuda_kernels as CK
+    from bodo_tpu_torch.parallel.mesh import make_mesh, use_mesh
+    from bodo_tpu_torch.workloads import taxi as T
+    from bodo_tpu_torch.workloads import taxi_aggs as A
+
+    t0 = time.perf_counter()
+    want, want_red = A.pandas_oracle(*T.gen_taxi_arrays(MAIN_ROWS,
+                                                        seed=SEED))
+    print(f"aggregations: pandas oracle {time.perf_counter() - t0:.3f}s, "
+          f"{len(want[T.KEYS[0]])} groups")
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def warm_ms(fn):
+        return statistics.median(timed(fn)[1] for _ in range(STAGE_REPS)) \
+            * 1e3
+
+    for label, shard in (("aggregations REP", False),
+                         ("aggregations 1D", True)):
+        mesh = use_mesh(make_mesh(SHARDS, trips.device)) if shard \
+            else contextlib.nullcontext()
+        with mesh:
+            src = trips.shard() if shard else trips
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            R.reset_route_counts()
+            CK.reset_launches()
+            m, join_s = timed(lambda: T.joined(src, weather))
+            out, groupby_s = timed(lambda: A.groupby(m))
+            red, reduce_s = timed(lambda: A.reduce(m))
+            routes = {k: v for k, v in R.route_counts.items() if v}
+            launches = dict(CK.launches)
+            peak = torch.cuda.max_memory_allocated()
+            A.check_groupby(A.table_arrays(out), want, AGG_RTOL, MOMENT_TOL,
+                            label)
+            A.check_reduce(red, want_red, AGG_RTOL, MOMENT_TOL, label)
+            wide_ms = warm_ms(lambda: R.groupby_agg(m, T.KEYS, A.WIDE_AGGS))
+            cm_ms = warm_ms(lambda: R.groupby_agg(m, T.KEYS,
+                                                  A.COUNT_MEAN_AGGS))
+            red_ms = warm_ms(lambda: A.reduce(m))
+        print(f"{label}: rows={m.nrows} groups={out.nrows} join_s="
+              f"{join_s:.4f} groupby_sort_s={groupby_s:.4f} reduce_s="
+              f"{reduce_s:.4f} (first run) max_memory_allocated={peak}")
+        print(f"{label}: groupby_agg warm ms (median of {STAGE_REPS}): "
+              f"wide spec {wide_ms:.3f}, count/mean spec {cm_ms:.3f}; "
+              f"reduce_table {red_ms:.3f}")
+        print(f"{label}: route_counts={routes} kernel_launches={launches}")
+        print(f"{label}: groupby and reduce_table match the pandas oracle "
+              f"(keys, min, max, first, last, prod and bool results equal; "
+              f"sumnull/var/std rtol={AGG_RTOL}; skew/kurt |delta| <= "
+              f"{MOMENT_TOL} * (1 + |x|))")
+        no_f32_accumulate(launches, label)
+        if shard:
+            want_routes = ("join_broadcast", "groupby_sharded_hash",
+                           "sort_sharded")
+            for k in ("hash_probe", "partition_rank", "range_partition"):
+                if launches[k] < 1:
+                    raise AssertionError(f"{label}: {k} not launched")
+        else:
+            want_routes = ("join_dense", "groupby_dense", "sort_local")
+            if launches["lut_gather"] != 1:
+                raise AssertionError(f"{label}: {launches['lut_gather']} "
+                                     f"lut_gather launches, want 1")
+        missing = [r for r in want_routes if routes.get(r, 0) < 1]
+        if missing:
+            raise AssertionError(f"{label}: routes {missing} not taken")
+        del m, out, src
+
+
 def range_launches_per_pass(launches, calls, label: str) -> None:
     """One range_partition call, and so one launch, a sample-sort pass:
     the calls of a later run (as many as its passes) against the first
@@ -1959,6 +2066,7 @@ def main() -> int:
     del probe_args
     oned_launches, rank_calls, range_calls, oned_probes = \
         run_taxi_1d(*taxi_run)
+    run_aggregations(*taxi_run[:2])
     del taxi_run
     rank = time_partition_rank(rank_calls)
     rank["launches"] = oned_launches["partition_rank"]
