@@ -34,11 +34,20 @@ class Config:
     bcast_join_threshold: int = 1 << 20
     # Sources with fewer rows stay replicated; larger ones are sharded.
     shard_min_rows: int = 100_000
+    # Memory governor (runtime/memory_governor.py): derive a device
+    # budget a shard from the card's free memory, behind the broadcast
+    # decisions of the 1D join. Off -> the rows-only rule decides.
+    mem_governor: bool = True
+    # Fraction of the probed device memory kept as headroom.
+    mem_headroom_frac: float = 0.15
+    # Largest slice of the derived budget one operator may hold.
+    mem_op_fraction: float = 0.5
     # Adaptive query execution (plan/adaptive.py): the broadcast decision
     # and the skew-split detection before a shuffle join.
     aqe: bool = True
-    # Broadcast byte budget as a fraction of the memory governor's; the
-    # port has no governor yet, so the rows-only rule decides.
+    # Broadcast byte budget: a build side is broadcast while its device
+    # bytes stay under this fraction of the memory governor's budget of
+    # a shard (plan/adaptive.py).
     aqe_bcast_frac: float = 0.05
     # A sampled join/shuffle key owning at least this fraction of rows is
     # hot.

@@ -249,3 +249,33 @@ def join_local(probe_arrays, build_arrays, probe_count: int,
         out_build.append((od, ov))
     return (tuple(out_probe), tuple(out_build), min(total, out_capacity),
             total > out_capacity, unresolved)
+
+
+def cross_local(probe_arrays, build_arrays, probe_count: int,
+                build_count: int, out_capacity: int):
+    """Cartesian product in pandas row order (probe-major: each probe row
+    paired with every build row in order): output slot j takes probe row
+    j // nb and build row j % nb. The caller knows the exact output size
+    (probe_count * build_count) beforehand, so there is no overflow
+    retry. Returns (out_probe, out_build, out_count)."""
+    pcap = probe_arrays[0][0].shape[0]
+    bcap = build_arrays[0][0].shape[0]
+    dev = probe_arrays[0][0].device
+    total = probe_count * build_count
+    nb = max(build_count, 1)
+    j = torch.arange(out_capacity, dtype=torch.int64, device=dev)
+    live = j < total
+    pidx = torch.div(j, nb, rounding_mode="floor").clamp(0, pcap - 1)
+    bidx = (j % nb).clamp(0, bcap - 1)
+
+    def gather(arrays, idx):
+        out = []
+        for d, v in arrays:
+            od = torch.where(live, d[idx], torch.zeros((), dtype=d.dtype,
+                                                       device=dev))
+            ov = None if v is None else (live & v[idx])
+            out.append((od, ov))
+        return tuple(out)
+
+    return (gather(probe_arrays, pidx), gather(build_arrays, bidx),
+            min(total, out_capacity))

@@ -37,7 +37,12 @@ def make_mesh(n_shards: int = 1, device=None) -> Mesh:
     one accelerator."""
     if int(n_shards) < 1:
         raise ValueError(f"a mesh needs at least one shard, got {n_shards}")
-    return Mesh(int(n_shards), resolve_device(device))
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        # name the index, as a tensor's device does, so that tables made
+        # on "cuda" compare equal to the mesh's device
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return Mesh(int(n_shards), dev)
 
 
 def get_mesh() -> Mesh:

@@ -6,28 +6,30 @@ replicated (REP) tables and over row-sharded (1D) tables on a mesh of S
 shards (parallel/mesh.py).
 
 REP routes: the dense-LUT join, the hash join, the sort join `_join_rep`
-by hash or sort gids (inner, left, right and outer); the dense / packed
-/ hashed / sort groupby routes; the local sort. 1D routes: the broadcast
-join (`_join_broadcast`, a replicated build side) and the shuffle join
-(`_join_sharded` after `shuffle_by_key`), each a per-shard join_local;
-the two-phase groupby (parallel/shuffle.groupby_sharded); the sample
-sort (ops/sort.sort_sharded). Elementwise stages (projection, the
-filter's predicate) run on the whole global array; compaction and
-everything else runs per shard. The gates are the JAX package's, checked
-in the same order, so both packages take the same route on the same
-data.
+by hash or sort gids (inner, left, right and outer); the cross join; the
+dense / packed / hashed / sort groupby routes; the local sort;
+`concat_tables` (UNION ALL). 1D routes: the broadcast join
+(`_join_broadcast`, a replicated build side) and the shuffle join
+(`_join_sharded` after `shuffle_by_key`), each a per-shard join_local,
+with plan/adaptive.py's broadcast decision and skew split; the cross
+join against a replicated side; the two-phase groupby
+(parallel/shuffle.groupby_sharded); the sample sort
+(ops/sort.sort_sharded). Elementwise stages (projection, the filter's
+predicate) run on the whole global array; compaction and everything
+else runs per shard. The gates are the JAX package's, checked in the
+same order, so both packages take the same route on the same data.
 
 `groupby_agg` takes the decomposable aggregations (ops/groupby.py) on
 every route, and `reduce_table` reduces whole columns to host scalars
 (REP and 1D).
 
 Where the JAX package would go on to a route the port has not ported
-(the cross join, the colocated groupby of non-decomposable aggregations
-on 1D tables, the skew-split join, concat_tables; the groupby's
-quantiles `_quantile_seg`, `_nunique`, `_mode` and
+(the colocated groupby of non-decomposable aggregations on 1D tables;
+the groupby's quantiles `_quantile_seg`, `_nunique`, `_mode` and
 `_groupby_agg_with_listagg`; the whole-column `_reduce_quantile`;
 aggregation over decimals) the port raises NotImplementedError naming
-it.
+it. A join without keys other than the cross join raises ValueError,
+where the JAX package fails inside its sort join.
 
 `route_counts` counts the routes taken, so tests and the chip smoke can
 show which one ran.
@@ -51,7 +53,7 @@ from bodo_tpu_torch.ops.groupby import (DECOMPOSE, HASH_OPS, _accumulated,
                                         groupby_local, groupby_local_hashed,
                                         segment_sum)
 from bodo_tpu_torch.ops.hashing import dest_shard, hash_columns
-from bodo_tpu_torch.ops.join import join_count, join_local
+from bodo_tpu_torch.ops.join import cross_local, join_count, join_local
 from bodo_tpu_torch.ops.sort import sort_local, sort_sharded
 from bodo_tpu_torch.parallel import collectives as C
 from bodo_tpu_torch.parallel import mesh as mesh_mod
@@ -78,6 +80,8 @@ route_counts: Dict[str, int] = {
     "groupby_sort": 0, "sort_local": 0,
     "join_broadcast": 0, "join_shuffle": 0, "groupby_sharded_hash": 0,
     "groupby_sharded_sort": 0, "sort_sharded": 0,
+    "join_cross": 0, "join_skew_split": 0, "append_sharded": 0,
+    "concat_tables": 0,
 }
 
 
@@ -837,16 +841,19 @@ def join_tables(left: Table, right: Table, left_on: Sequence[str],
     """Equi-join (pandas merge analogue); the build side is `right`.
     how: inner / left / right / outer. null_equal=True gives pandas merge
     semantics (null keys match each other); SQL passes False (null keys
-    never match). Routes, in the JAX package's order: for two REP tables
+    never match). how="cross" is the Cartesian product (the keys are
+    ignored). Routes, in the JAX package's order: for two REP tables
     the dense-LUT join, the hash join, the sort join `_join_rep`; for a 1D
-    probe side the broadcast join (a REP or small build side) or the
-    shuffle join, with the broadcast decision of plan/adaptive.py."""
+    probe side the broadcast join (a REP or small build side), the skew
+    split or the shuffle join, with the decisions of plan/adaptive.py."""
     left_on, right_on = list(left_on), list(right_on)
     if how not in ("inner", "left", "right", "outer", "cross"):
         raise ValueError(f"join how={how!r} not supported")
-    if how == "cross" or not left_on:
-        raise NotImplementedError("the cross join (_cross_join) is not "
-                                  "ported yet")
+    if how == "cross":
+        return _cross_join(left, right, suffixes)
+    if not left_on:
+        raise ValueError(f"a {how} join needs join keys; a join without "
+                         f"keys is how='cross'")
     if how == "right":
         # right join = left join with the sides swapped; restore the
         # pandas column order (left's columns first) afterwards
@@ -1248,6 +1255,49 @@ def _join_broadcast(left, right, left_on, right_on, how, suffixes,
                          broadcast=True, null_equal=null_equal)
 
 
+def _cross_join(left, right, suffixes) -> Table:
+    """Cartesian product (merge how='cross'), in pandas' row order:
+    probe-major, each left row paired with every right row in order. A
+    1D left side keeps its shards, and every shard pairs its rows with
+    the whole right side (replicated: a 1D right side is gathered);
+    since the shards' rows are in order, so is the product. A REP left
+    side against a 1D right side gathers the right side. The output size
+    is known on the host (the rows of a shard x the right side's), so
+    the capacity is exact and there is no overflow retry."""
+    ll, rl = _as_local(left), _as_local(right)
+    if ll is not None:
+        left = ll
+    if rl is not None:
+        right = rl
+    if right.distribution == ONED:
+        right = right.gather()
+    route_counts["join_cross"] += 1
+    if left.distribution == ONED:
+        left = shrink_to_fit(left)
+        lorder, rorder, pa, ba = _probe_build_arrays(left, right, [], [])
+        s = left.num_shards
+        percap = int(left.counts.max(initial=0))
+        out_cap = round_capacity(max(percap * max(right.nrows, 1), 1))
+        outs_p, outs_b, cnts = [], [], []
+        for i, probe in enumerate(_shard_arrays(pa, s)):
+            out_p, out_b, cnt = cross_local(probe, ba, int(left.counts[i]),
+                                            right.nrows, out_cap)
+            outs_p.append(out_p)
+            outs_b.append(out_b)
+            cnts.append(cnt)
+        counts = np.array(cnts, dtype=np.int64)
+        res = _assemble_join(left, right, [], [], lorder, rorder,
+                             _concat_pairs(outs_p), _concat_pairs(outs_b),
+                             int(counts.sum()), "cross", suffixes, counts)
+        return shrink_to_fit(res)
+    lorder, rorder, pa, ba = _probe_build_arrays(left, right, [], [])
+    out_cap = round_capacity(max(left.nrows * right.nrows, 1))
+    out_p, out_b, cnt = cross_local(pa, ba, left.nrows, right.nrows,
+                                    out_cap)
+    return _assemble_join(left, right, [], [], lorder, rorder, out_p, out_b,
+                          cnt, "cross", suffixes)
+
+
 def shuffle_by_key(t: Table, key_cols: Sequence[str]) -> Table:
     """Hash-partition the rows of a 1D table over its shards by key
     columns: rows with equal keys land on the same shard. The send
@@ -1270,6 +1320,63 @@ def shuffle_by_key(t: Table, key_cols: Sequence[str]) -> Table:
 
 
 def concat_tables(tables: Sequence[Table]) -> Table:
-    """Row-wise concatenation (UNION ALL): not ported yet."""
-    raise NotImplementedError("concat_tables (the row-wise union of "
-                              "tables) is not ported yet")
+    """Row-wise concatenation (UNION ALL) into a replicated table: 1D
+    inputs are gathered. Inputs share the column names (the first
+    table's order); string dictionaries are unified; numeric dtypes
+    promote by np.result_type; decimals of one scale keep it, at the
+    largest precision, and any other mix with a decimal is descaled to
+    float64; validity is merged, all-valid for an input without a mask.
+    Columns of one datetime, timedelta or date type keep it, where the
+    JAX package relabels their physical integers (ROADMAP F9)."""
+    if not tables:
+        raise ValueError("concat_tables needs at least one table")
+    route_counts["concat_tables"] += 1
+    names = tables[0].names
+    parts = [t.gather() if t.distribution == ONED else t for t in tables]
+    total = sum(t.nrows for t in parts)
+    cap = round_capacity(max(total, 1))
+    dev = parts[0].device
+    cols: Dict[str, Column] = {}
+    for n in names:
+        src_cols = [t.columns[n] for t in parts]
+        dictionary = None
+        if any(c.dtype is dt.STRING for c in src_cols):
+            dictionary, src_cols = unify_dictionaries(src_cols)
+            out_dtype = dt.STRING
+        elif any(dt.is_decimal(c.dtype) for c in src_cols):
+            scales = {c.dtype.scale for c in src_cols
+                      if dt.is_decimal(c.dtype)}
+            if len(scales) == 1 and all(dt.is_decimal(c.dtype)
+                                        for c in src_cols):
+                out_dtype = dt.decimal(
+                    scales.pop(),
+                    precision=max(c.dtype.precision for c in src_cols))
+            else:  # mixed scales, or a decimal beside another type
+                out_dtype = dt.FLOAT64
+                # the divisor as a device tensor: CUDA divides by a host
+                # scalar as a product with its reciprocal, one ulp off
+                # the quotient the CPU gives
+                src_cols = [
+                    Column(c.data.to(torch.float64) / torch.tensor(
+                        10.0 ** c.dtype.scale, dtype=torch.float64,
+                        device=dev), c.valid, dt.FLOAT64)
+                    if dt.is_decimal(c.dtype) else c for c in src_cols]
+        elif src_cols[0].dtype.kind in ("dt", "td", "date") and all(
+                c.dtype is src_cols[0].dtype for c in src_cols):
+            out_dtype = src_cols[0].dtype
+        else:
+            out_dtype = dt.from_numpy(np.result_type(
+                *[c.dtype.numpy for c in src_cols]))
+        any_valid = any(c.valid is not None for c in src_cols)
+        data = torch.zeros(cap, dtype=out_dtype.torch, device=dev)
+        valid = (torch.zeros(cap, dtype=torch.bool, device=dev)
+                 if any_valid else None)
+        at = 0
+        for t, c in zip(parts, src_cols):
+            data[at:at + t.nrows] = c.data[:t.nrows].to(out_dtype.torch)
+            if any_valid:
+                valid[at:at + t.nrows] = (True if c.valid is None
+                                          else c.valid[:t.nrows])
+            at += t.nrows
+        cols[n] = Column(data, valid, out_dtype, dictionary)
+    return Table(cols, total)

@@ -78,9 +78,11 @@ per source, all started together), then:
        then held against their plain versions and timed on each of the
        run's calls;
      - the star join with shard=True on 4 shards, on the REP phase's
-       tables: the shuffle join (partition_rank on the 20M-row fact
-       table's shards), against the numpy oracle; hash_probe is then
-       held and timed on each of the run's calls (one a shard);
+       tables, with the memory governor off (so it times the same calls
+       whatever the card's free memory): the shuffle join
+       (partition_rank on the 20M-row fact table's shards), against the
+       numpy oracle; hash_probe is then held and timed on each of the
+       run's calls (one a shard);
      - range_partition held against its plain version on every call of
        the two 1D paths (one launch a sample-sort pass), and timed there
        beside a call a shard with torch.cat (the contract it replaced)
@@ -111,8 +113,29 @@ per source, all started together), then:
        1e-7 * (1 + |x|)); then the warm stage time of groupby_agg for
        this spec and for the pipeline's count/mean spec, and of
        reduce_table, each the median of 5 runs;
+     - the rest of the 1D join family (workloads/join_family.py), each
+       against its numpy oracle, with its wall and warm time (median of
+       5), peak memory, routes and launches: the union of the taxi
+       trips split by pickup quarter into two 1D tables with their own
+       dictionaries (concat_tables, then the taxi pipeline on the
+       union; lut_gather); the star join with shard=True under the
+       memory governor (its budget a shard, the build's bytes and the
+       broadcast decision printed: the shuffle join, since the filtered
+       fact table is not 4 times the dimension), then against the half
+       of the dimension with g < 16 (2.5M rows, over
+       bcast_join_threshold: promoted to the broadcast join by the
+       governor, shuffled with it off); the star join on a fact table
+       whose key is one dimension key in 40% of the rows, governor off
+       (the skew split: join_skew_split, the hot rows' broadcast join,
+       the cold rows' shuffle join, append_sharded; hash_probe and
+       partition_rank), beside the same query with the split off; the
+       1D cross join of the 5M-row dimension with 4 scenario rows (20M
+       rows, the first and last 1,000 held exactly to pandas' order),
+       then u = w * m summed by (g, scenario) (partition_rank,
+       range_partition);
      every float64 path above (the taxi paths, the taxi read's
-     pipeline, the star paths, the aggregations, the join matrix) must
+     pipeline, the star paths, the aggregations, the join family, the
+     join matrix) must
      launch groupby_sum zero times: the reference's gates refuse f64
      sums and means and any aggregation but sum, count, size and mean;
   3. runs the taxi pipeline at 20,000 rows, which takes the packed/hashed
@@ -1665,15 +1688,17 @@ def run_star():
     # one more run, keeping the inputs of its hash_probe launch
     with _Capture("hash_probe") as probe:
         S.pipeline(fact, dim)
-    return launches, probe.calls[0], (fact, dim, oracle)
+    return launches, probe.calls[0], (fact, dim, oracle, fact_np, dim_np)
 
 
 def run_star_1d(fact, dim, oracle):
     """Drive the star join with shard=True on SHARDS shards of the card,
-    on the REP phase's tables: the shuffle join (both sides hashed to
-    their key's shard, partition_rank on every shard), the sharded
-    groupby and sort (range_partition); check it against the numpy
-    oracle. Returns the arguments of every hash_probe and every
+    on the REP phase's tables, with the memory governor off (the JAX
+    package's BODO_TPU_MEM_GOVERNOR=0), so the phase times the same
+    calls whatever the card's free memory: the shuffle join (both sides
+    hashed to their key's shard, partition_rank on every shard), the
+    sharded groupby and sort (range_partition); check it against the
+    numpy oracle. Returns the arguments of every hash_probe and every
     range_partition call of a later run, for timing."""
     import torch
     from bodo_tpu_torch import relational as R
@@ -1695,9 +1720,10 @@ def run_star_1d(fact, dim, oracle):
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     S.check_against(out.to_numpy(), oracle, rtol=AVG_RTOL)
-    print(f"star path 1D: shards={SHARDS} groups={out.nrows} "
-          f"shard_groups={out.counts.tolist()} pipeline_s={wall_s:.4f} "
-          f"pipeline_warm_s={warm_s:.4f} max_memory_allocated={peak}")
+    print(f"star path 1D (mem_governor off): shards={SHARDS} "
+          f"groups={out.nrows} shard_groups={out.counts.tolist()} "
+          f"pipeline_s={wall_s:.4f} pipeline_warm_s={warm_s:.4f} "
+          f"max_memory_allocated={peak}")
     print(f"star path 1D: route_counts={routes} kernel_launches={launches}")
     print(f"star path 1D: matches the numpy oracle (g and c exact, s "
           f"rtol={AVG_RTOL})")
@@ -2000,6 +2026,270 @@ def run_aggregations(trips, weather):
         del m, out, src
 
 
+class _PortConfig:
+    """Set fields of the port's config for a block, then put them back."""
+
+    def __init__(self, **fields):
+        self.fields, self.saved = fields, {}
+
+    def __enter__(self):
+        from bodo_tpu_torch.config import config
+        for k, v in self.fields.items():
+            self.saved[k] = getattr(config, k)
+            setattr(config, k, v)
+
+    def __exit__(self, *exc):
+        from bodo_tpu_torch.config import config
+        for k, v in self.saved.items():
+            setattr(config, k, v)
+
+
+def _drive(fn):
+    """Run `fn` once with the route and launch counts set to 0 just
+    before and read just after. Returns (its result, wall seconds, the
+    routes taken, the kernel launches, max_memory_allocated)."""
+    import torch
+    from bodo_tpu_torch import relational as R
+    from bodo_tpu_torch.ops import cuda_kernels as CK
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    R.reset_route_counts()
+    CK.reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    routes = {k: v for k, v in R.route_counts.items() if v}
+    return (out, wall_s, routes, dict(CK.launches),
+            torch.cuda.max_memory_allocated())
+
+
+def _warm_s(fn) -> float:
+    """Median wall seconds of STAGE_REPS further runs of `fn`."""
+    import torch
+    times = []
+    for _ in range(STAGE_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def _report(label, wall_s, warm_s, peak, routes, launches, want_routes,
+            want_launches, extra: str = "") -> None:
+    """Print a phase's numbers; raise unless every route of `want_routes`
+    and every kernel of `want_launches` ran in the driven run."""
+    print(f"{label}: pipeline_s={wall_s:.4f} pipeline_warm_s={warm_s:.4f} "
+          f"(median of {STAGE_REPS}) max_memory_allocated={peak}{extra}")
+    print(f"{label}: route_counts={routes} kernel_launches={launches}")
+    missing = [r for r in want_routes if routes.get(r, 0) < 1]
+    missing += [k for k in want_launches if launches[k] < 1]
+    if missing:
+        raise AssertionError(f"{label}: {missing} not taken or launched")
+    no_f32_accumulate(launches, label)
+
+
+def run_star_governor(fact, dim, oracle, fact_np, dim_np):
+    """The star join with shard=True under the reference's defaults (the
+    memory governor on): the governor's budget a shard, the build's
+    bytes and the decision printed; then the star against the half of
+    the dimension with g < 16 (workloads/join_family.star_filtered_dim),
+    a build over bcast_join_threshold rows that fits the budget's
+    broadcast share: promoted to the broadcast join under the governor,
+    shuffled with it off. Each run against its numpy oracle."""
+    from bodo_tpu_torch import relational as R
+    from bodo_tpu_torch.config import config
+    from bodo_tpu_torch.parallel.mesh import make_mesh, use_mesh
+    from bodo_tpu_torch.plan import adaptive
+    from bodo_tpu_torch.plan.expr import ColRef, Lit
+    from bodo_tpu_torch.runtime.memory_governor import (governor,
+                                                        table_device_bytes)
+    from bodo_tpu_torch.workloads import join_family as JF
+    from bodo_tpu_torch.workloads import star_join as S
+
+    if not config.mem_governor:
+        raise AssertionError("the governor phase needs the default "
+                             "config.mem_governor = True")
+    with use_mesh(make_mesh(SHARDS, fact.device)):
+        fact1, dim1 = fact.shard(), dim.shard()
+        budget = governor().derived_budget()
+        share = config.aqe_bcast_frac * budget
+        f1 = R.filter_table(fact1, ColRef("y") % Lit(3) != Lit(0))
+        d1 = R.filter_table(dim1, ColRef("g") < Lit(JF.DIM_GROUPS_KEPT))
+        for label, build, query, want in (
+                ("star 1D governor", dim1, lambda: S._pipeline(fact1, dim1),
+                 oracle),
+                ("star 1D governor, dimension g < 16", d1,
+                 lambda: JF.star_filtered_dim(fact1, dim1),
+                 JF.numpy_star_filtered_dim(fact_np, dim_np))):
+            nbytes = table_device_bytes(build)
+            decision = adaptive.join_broadcast_decision(build, f1)
+            rows_rule = (build.nrows <= config.bcast_join_threshold
+                         and f1.nrows > 4 * build.nrows)
+            out, wall_s, routes, launches, peak = _drive(query)
+            S.check_against(out.to_numpy(), want, rtol=AVG_RTOL)
+            warm = _warm_s(query)
+            route = "join_broadcast" if decision else "join_shuffle"
+            print(f"{label}: budget a shard={budget} bytes (probe at "
+                  f"first use x {1 - config.mem_headroom_frac:g}), "
+                  f"broadcast share={share:.0f} bytes; build rows="
+                  f"{build.nrows} bytes={nbytes}, probe rows={f1.nrows}; "
+                  f"decision={route} (rows-only rule: "
+                  f"{'broadcast' if rows_rule else 'shuffle'}); matches "
+                  f"the numpy oracle (g and c exact, s rtol={AVG_RTOL})")
+            _report(label, wall_s, warm, peak, routes, launches, (route,),
+                    ("hash_probe", "partition_rank", "range_partition"))
+            if routes.get("join_broadcast" if not decision
+                          else "join_shuffle", 0):
+                raise AssertionError(f"{label}: both join routes ran")
+        if not decision:
+            raise AssertionError("the filtered dimension's bytes do not fit "
+                                 "the governor's broadcast share")
+        with _PortConfig(mem_governor=False):
+            out, wall_s, routes, launches, peak = _drive(
+                lambda: JF.star_filtered_dim(fact1, dim1))
+            warm = _warm_s(lambda: JF.star_filtered_dim(fact1, dim1))
+        _report("star 1D governor off, dimension g < 16", wall_s, warm,
+                peak, routes, launches,
+                ("join_broadcast" if rows_rule else "join_shuffle",),
+                ("hash_probe", "partition_rank"))
+        del fact1, dim1, f1, d1, out
+
+
+def run_skewed_star(dim, fact_np, dim_np):
+    """The star join with shard=True on the fact table with HOT_SHARE of
+    its keys set to one dimension key (workloads/join_family.skewed_fact)
+    and the governor off: the skew split (the hot rows broadcast-joined,
+    the cold rows shuffle-joined, the halves appended shard by shard),
+    against the numpy oracle; then the same query with the split off
+    (aqe_skew_min_rows past the rows), for its time."""
+    import numpy as np
+    from bodo_tpu_torch.parallel.mesh import make_mesh, use_mesh
+    from bodo_tpu_torch.workloads import join_family as JF
+    from bodo_tpu_torch.workloads import star_join as S
+
+    t0 = time.perf_counter()
+    skew_np = JF.skewed_fact(fact_np, dim_np)
+    fact = S.tables_from_arrays(skew_np, dim_np)[0]
+    want = S.numpy_pipeline(skew_np, dim_np)
+    setup_s = time.perf_counter() - t0
+    hot = float(np.mean(skew_np["k"] == JF.hot_key(dim_np)))
+    with use_mesh(make_mesh(SHARDS, fact.device)), \
+            _PortConfig(mem_governor=False):
+        fact1, dim1 = fact.shard(), dim.shard()
+        out, wall_s, routes, launches, peak = _drive(
+            lambda: S._pipeline(fact1, dim1))
+        S.check_against(out.to_numpy(), want, rtol=AVG_RTOL)
+        warm = _warm_s(lambda: S._pipeline(fact1, dim1))
+        _report("star 1D skewed", wall_s, warm, peak, routes, launches,
+                ("join_skew_split", "append_sharded", "join_broadcast",
+                 "join_shuffle"),
+                ("hash_probe", "partition_rank", "range_partition"),
+                f" hot key share={hot:.4f} setup_s={setup_s:.3f}")
+        print(f"star 1D skewed: matches the numpy oracle (g and c exact, s "
+              f"rtol={AVG_RTOL})")
+        with _PortConfig(aqe_skew_min_rows=1 << 62):
+            out, wall_s, routes, launches, peak = _drive(
+                lambda: S._pipeline(fact1, dim1))
+            S.check_against(out.to_numpy(), want, rtol=AVG_RTOL)
+            warm = _warm_s(lambda: S._pipeline(fact1, dim1))
+        _report("star 1D skewed, no split", wall_s, warm, peak, routes,
+                launches, ("join_shuffle",), ("hash_probe",
+                                              "partition_rank"))
+        del fact1, dim1, out
+
+
+def run_union(trips, weather, rep_got, oracle):
+    """UNION ALL of the taxi trips split by pickup quarter into two 1D
+    tables on SHARDS shards, each with its own dictionaries and bounds
+    (workloads/join_family.quarter_tables), through concat_tables, then
+    the taxi pipeline on the (replicated) union, against the numpy
+    oracle of the whole table and, row for row, the REP run."""
+    from bodo_tpu_torch import relational as R
+    from bodo_tpu_torch.parallel.mesh import make_mesh, use_mesh
+    from bodo_tpu_torch.workloads import join_family as JF
+    from bodo_tpu_torch.workloads import taxi as T
+
+    t0 = time.perf_counter()
+    quarters = JF.quarter_tables(trips)
+    sizes = [q.nrows for q in quarters]
+    with use_mesh(make_mesh(SHARDS, weather.device)):
+        parts = [q.shard() for q in quarters]
+        del quarters
+        setup_s = time.perf_counter() - t0
+        dicts = [p.column("hvfhs_license_num").dictionary for p in parts]
+        out, wall_s, routes, launches, peak = _drive(
+            lambda: JF.union_pipeline(parts, weather))
+        got = out.to_numpy()
+        T.check_against(got, oracle, rtol=AVG_RTOL)
+        T.check_against(got, rep_got, rtol=AVG_RTOL)
+        warm = _warm_s(lambda: JF.union_pipeline(parts, weather))
+        concat_ms = _warm_s(lambda: R.concat_tables(parts)) * 1e3
+    _report("union", wall_s, warm, peak, routes, launches,
+            ("concat_tables", "join_dense", "sort_local"),
+            ("lut_gather",),
+            f" quarters={sizes} shards={SHARDS} setup_s={setup_s:.3f} "
+            f"concat_tables warm ms={concat_ms:.3f} (median of "
+            f"{STAGE_REPS}); dictionaries apart: {dicts[0] is not dicts[1]}")
+    print(f"union: matches the numpy oracle of the whole table and, row "
+          f"for row, the REP run (keys and trip_count exact, avg_miles "
+          f"rtol={AVG_RTOL})")
+
+
+def run_cross(dim, dim_np):
+    """The star dimension on SHARDS shards x the replicated scenario
+    table (workloads/join_family.cross_product, the 1D cross join): its
+    first and last 1,000 rows held exactly to pandas' order; then
+    u = w * m summed by (g, scenario) and sorted, against the numpy
+    oracle."""
+    import numpy as np
+    import torch
+    from bodo_tpu_torch.parallel.mesh import make_mesh, use_mesh
+    from bodo_tpu_torch.workloads import join_family as JF
+
+    scen = JF.scenario_table(dim.device)
+    want = JF.numpy_cross_pipeline(dim_np)
+    with use_mesh(make_mesh(SHARDS, dim.device)):
+        dim1 = dim.shard()
+        prod, cross_s, routes, _, cross_peak = _drive(
+            lambda: JF.cross_product(dim1, scen))
+        if routes != {"join_cross": 1} or prod.distribution != "1D" or \
+                prod.nrows != len(dim_np["k"]) * JF.N_SCENARIOS:
+            raise AssertionError(f"cross join: {routes} {prod}")
+        per, counts = prod.shard_capacity, prod.counts
+        n = prod.nrows
+        for rows, pos in ((np.arange(1000), np.arange(1000)),
+                          (np.arange(n - 1000, n),
+                           (len(counts) - 1) * per + counts[-1] - 1000
+                           + np.arange(1000))):
+            exp = JF.numpy_cross_rows(dim_np, rows)
+            idx = torch.as_tensor(pos, device=dim.device)
+            for name, col in exp.items():
+                got = prod.column(name).data[idx].cpu().numpy()
+                if not np.array_equal(got, col):
+                    raise AssertionError(f"cross join: column {name} of "
+                                         f"rows {rows[0]}.. differs")
+        cross_warm = _warm_s(lambda: JF.cross_product(dim1, scen))
+        del prod
+        out, wall_s, routes, launches, peak = _drive(
+            lambda: JF.cross_pipeline(JF.cross_product(dim1, scen)))
+        got = out.to_numpy()
+        JF.check_cross(got, want, rtol=AVG_RTOL)
+        warm = _warm_s(lambda: JF.cross_pipeline(
+            JF.cross_product(dim1, scen)))
+    _report("cross join", wall_s, warm, peak, routes, launches,
+            ("join_cross", "groupby_sharded_hash", "sort_sharded"),
+            ("partition_rank", "range_partition"),
+            f" rows={n} ({len(dim_np['k'])} x {JF.N_SCENARIOS}) "
+            f"product_s={cross_s:.4f} product_warm_s={cross_warm:.4f} "
+            f"product_max_memory_allocated={cross_peak}")
+    print(f"cross join: first and last 1,000 rows equal pandas' order; "
+          f"sum(u) by (g, scenario) matches the numpy oracle (keys exact, "
+          f"s rtol={AVG_RTOL})")
+
+
 def range_launches_per_pass(launches, calls, label: str) -> None:
     """One range_partition call, and so one launch, a sample-sort pass:
     the calls of a later run (as many as its passes) against the first
@@ -2067,6 +2357,7 @@ def main() -> int:
     oned_launches, rank_calls, range_calls, oned_probes = \
         run_taxi_1d(*taxi_run)
     run_aggregations(*taxi_run[:2])
+    run_union(*taxi_run)
     del taxi_run
     rank = time_partition_rank(rank_calls)
     rank["launches"] = oned_launches["partition_rank"]
@@ -2076,7 +2367,11 @@ def main() -> int:
     probe["taxi_1d_calls"] = time_probe_calls(oned_probes,
                                               "1D taxi path")
     del rank_calls, range_calls, oned_probes
-    star_probes, star_ranges = run_star_1d(*star_run)
+    with _PortConfig(mem_governor=False):
+        star_probes, star_ranges = run_star_1d(*star_run[:3])
+    run_star_governor(*star_run)
+    run_skewed_star(*star_run[1:2], *star_run[3:])
+    run_cross(star_run[1], star_run[4])
     del star_run
     probe["star_1d_calls"] = time_probe_calls(star_probes, "1D star path")
     part["star_1d_calls"] = time_range_calls(star_ranges, "1D star path")

@@ -13,11 +13,12 @@ repeated keys, whose output overflows its first capacity and is re-run
 at the exact size. On 4 shards, a small left side, which the inner join
 swaps to the build side and broadcasts.
 
-Last, on 4 shards, the 1D routes the port refuses, each where the
-reference takes it: the skew-split join (a hot probe key), the colocated
-groupby (an aggregation that does not decompose), the cross join and
-concat_tables. One test runs every check (see tests/torch_parity.py on
-why each test_torch_* file holds one test)."""
+Last, on 4 shards, the 1D routes that came after the graft step, each
+where the reference takes it, held to the reference (tables and routes):
+the skew-split join (a hot probe key), the cross join and concat_tables;
+and the colocated groupby (an aggregation that does not decompose),
+which the port still refuses. One test runs every check (see
+tests/torch_parity.py on why each test_torch_* file holds one test)."""
 
 import numpy as np
 import pandas as pd
@@ -95,13 +96,21 @@ def _check_small_left_side(ref_mesh):
     assert port.names == ["k", "w", "v", "s"]
 
 
-def _check_refusals(s, ref_mesh, port_mesh):
+def _check_later_routes(s, ref_mesh, port_mesh):
     import bodo_tpu
     import bodo_tpu.relational as R
     from bodo_tpu.plan import adaptive as ref_aqe
     from bodo_tpu.table import Table as RefTable
     from bodo_tpu_torch import relational as PR
     from bodo_tpu_torch.parallel.mesh import use_mesh
+
+    def same(call, route):
+        with reference_routes() as ref_routes:
+            ref = call(R)
+        routes = port_routes_reset()
+        port = call(PR, to_port)
+        assert_same_table(port, ref)
+        assert routes == ref_routes and routes[route] == 1, routes
 
     r = np.random.default_rng(5)
     n = 2000
@@ -114,20 +123,17 @@ def _check_refusals(s, ref_mesh, port_mesh):
         tl = RefTable.from_pandas(hot).shard()
         tr = RefTable.from_pandas(build).shard()
         before = ref_aqe._counters["skew:split_join"]
-        R.join_tables(tl, tr, ["k"], ["k"], "inner")
+        same(lambda M, f=lambda t: t: M.join_tables(
+            f(tl), f(tr), ["k"], ["k"], "inner"), "join_skew_split")
         assert ref_aqe._counters["skew:split_join"] == before + 1
-        with pytest.raises(NotImplementedError, match="try_skew_split_join"):
-            PR.join_tables(to_port(tl), to_port(tr), ["k"], ["k"], "inner")
         R.groupby_agg(tl, ["k"], [("v", "nunique", "u")])
         with pytest.raises(NotImplementedError,
                            match="_groupby_agg_colocated"):
             PR.groupby_agg(to_port(tl), ["k"], [("v", "nunique", "u")])
-        R.join_tables(tl, tr, [], [], "cross")
-        with pytest.raises(NotImplementedError, match="_cross_join"):
-            PR.join_tables(to_port(tl), to_port(tr), [], [], "cross")
-        R.concat_tables([tl, tl])
-        with pytest.raises(NotImplementedError, match="concat_tables"):
-            PR.concat_tables([to_port(tl), to_port(tl)])
+        same(lambda M, f=lambda t: t: M.join_tables(
+            f(tl), f(tr), [], [], "cross"), "join_cross")
+        same(lambda M, f=lambda t: t: M.concat_tables([f(tl), f(tl)]),
+             "concat_tables")
 
 
 def _count_calls(module, name):
@@ -172,4 +178,4 @@ def test_graft_step_matches_reference(reference):
             assert exact_counts.calls == s  # the exact-size re-run
     with use_mesh(port_mesh):
         _check_small_left_side(ref_mesh)
-    _check_refusals(4, ref_mesh, port_mesh)
+    _check_later_routes(4, ref_mesh, port_mesh)

@@ -1,7 +1,8 @@
 """The port's relational operators against bodo_tpu.relational on the same
 tables: each groupby route (dense, packed, hashed, sort), the dense-LUT
-join (LUTs of 182 and 9,999 slots, both through lut_gather), sort_table,
-assign_columns and filter_table — with the same routes taken.
+join (LUTs of 182 and 9,999 slots, both through lut_gather), the cross
+join, sort_table, assign_columns and filter_table — with the same routes
+taken; a join without keys other than the cross join raises ValueError.
 
 One test runs every check (see tests/torch_parity.py on why each
 test_torch_* file holds one test)."""
@@ -131,15 +132,17 @@ def _check_join_dense_route(how, key_hi, n_right):
     assert port.names == ["key", "x_x", "tag", "x_y", "label"]
 
 
-def _check_join_unported_routes_raise():
+def _check_join_keyless():
+    """The cross join against the reference's; a keyless inner join
+    raises ValueError (ROADMAP F6: the reference fails inside its sort
+    join)."""
+    import bodo_tpu.relational as R
     from bodo_tpu_torch import relational as PR
-    from bodo_tpu_torch.table import Table
-    left = Table.from_pandas(pd.DataFrame({"k": [1, 2, 3]}), device="cpu")
-    dup = Table.from_pandas(pd.DataFrame({"k": [1, 1], "y": [0, 1]}),
-                            device="cpu")
-    with pytest.raises(NotImplementedError, match="_cross_join"):
-        PR.join_tables(left, dup, [], [], "cross")
-    with pytest.raises(NotImplementedError, match="_cross_join"):
+    rl, left = _both(pd.DataFrame({"k": [1, 2, 3]}))
+    rd, dup = _both(pd.DataFrame({"k": [1, 1], "y": [0, 1]}))
+    assert_same_table(PR.join_tables(left, dup, [], [], "cross"),
+                      R.join_tables(rl, rd, [], [], "cross"))
+    with pytest.raises(ValueError, match="how='cross'"):
         PR.join_tables(left, dup, [], [], "inner")
 
 
@@ -214,7 +217,7 @@ def test_relational_matches_reference(reference):
         # a LUT the kernel takes (182 < 4096 slots) and one beyond it
         for key_hi, n_right in ((200, 150), (10_000, 700)):
             _check_join_dense_route(how, key_hi, n_right)
-    _check_join_unported_routes_raise()
+    _check_join_keyless()
     for by, ascending, na_last in (
             (["a", "b"], None, True),          # packed int64 sort
             (["f", "a"], None, True),          # float key

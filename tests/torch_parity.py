@@ -20,15 +20,23 @@ keeps at process level:
     (bodo_tpu.io.device_decode._codec_cache). The decode tests call
     only its pure host functions, never its read route, whose footer,
     schema and program caches and io_pool counters later JAX tests
-    read.
+    read;
+  - the streaming host-sync counts (bodo_tpu.plan.streaming.stream_stats),
+    which its append_sharded bumps, and its memory governor
+    (bodo_tpu.runtime.memory_governor._governor): a test that turns the
+    governor on replaces it with a fresh one (`reset_governor`) before
+    it pins a probe, and the fixture puts the old one back;
+  - every field of the port's config, which is process state of the
+    worker too.
 
 It also turns the reference's progcheck off (ROADMAP fault F1: progcheck
 breaks on this tree's jax), and its fusion and fused-join caches off
 (config.fusion, config.fusion_join): the reference's hash join would
 otherwise keep its build table in `fusion_join._build_cache`, which
-would outlive the test in the worker. Its memory governor is off
-(config.mem_governor), so its broadcast decisions take the rows-only
-rule the port has, and so is its comm accounting
+would outlive the test in the worker. The memory governor is off in
+both packages (config.mem_governor), so their broadcast decisions take
+the rows-only rule unless a test pins a budget on both sides
+(`pinned_budget`). Its comm accounting is off
 (config.comm_accounting), whose metrics histograms have no way back.
 Kernels run in interpret mode only through an explicit
 `interpret=True`, never by flipping FORCE_INTERPRET. torch runs
@@ -74,7 +82,8 @@ def _process_records():
     from bodo_tpu.io import device_decode
     from bodo_tpu.parallel import comm
     from bodo_tpu.parallel import shuffle
-    from bodo_tpu.plan import adaptive
+    from bodo_tpu.plan import adaptive, streaming
+    from bodo_tpu.runtime import memory_governor
     from bodo_tpu.utils import tracing
     names = ((comm, ("_sites", "_last", "_seq")),
              (adaptive, ("_counters", "_observed", "_qerr")),
@@ -82,12 +91,19 @@ def _process_records():
              (tracing, ("_events", "_agg", "_tids", "_query_meta",
                         "_dropped")),
              (shuffle, ("_MESHES",)),
-             (device_decode, ("_codec_cache",)))
+             (device_decode, ("_codec_cache",)),
+             (streaming, ("stream_stats",)),
+             (memory_governor, ("_governor",)))
     # the meshes, the trace events and the codecs are held, not changed
-    # in place
+    # in place; the governor object itself is put back
     shallow = ("_MESHES", "_events", "_codec_cache")
-    return [(mod, name, (copy.copy if name in shallow else copy.deepcopy)(
-        getattr(mod, name))) for mod, attrs in names for name in attrs]
+
+    def snap(name, obj):
+        if name == "_governor":
+            return obj
+        return (copy.copy if name in shallow else copy.deepcopy)(obj)
+    return [(mod, name, snap(name, getattr(mod, name)))
+            for mod, attrs in names for name in attrs]
 
 
 def _restore_records(saved) -> None:
@@ -110,9 +126,12 @@ def reference_state():
     from bodo_tpu.config import config
     from bodo_tpu.ops import pallas_kernels as PK
     from bodo_tpu.parallel import mesh as mesh_mod
+    from bodo_tpu_torch.config import config as port_config
 
     cfg = {f.name: getattr(config, f.name)
            for f in dataclasses.fields(config)}
+    port_cfg = {f.name: getattr(port_config, f.name)
+                for f in dataclasses.fields(port_config)}
     env = dict(os.environ)
     pk = (PK.FORCE_INTERPRET, PK._runtime_disabled, PK.trace_count,
           dict(PK.trace_counts))
@@ -124,12 +143,15 @@ def reference_state():
     config.fusion_join = False
     config.mem_governor = False
     config.comm_accounting = False
+    port_config.mem_governor = False
     try:
         yield
     finally:
         _restore_records(records)
         for k, v in cfg.items():
             setattr(config, k, v)
+        for k, v in port_cfg.items():
+            setattr(port_config, k, v)
         if dict(os.environ) != env:
             os.environ.clear()
             os.environ.update(env)
@@ -158,6 +180,10 @@ _REF_ROUTES = {
     "sort_local": ("bodo_tpu.relational", "sort_local"),
     "join_broadcast": ("bodo_tpu.relational", "_join_broadcast"),
     "sort_sharded": ("bodo_tpu.relational", "sort_sharded"),
+    "join_cross": ("bodo_tpu.relational", "_cross_join"),
+    "join_skew_split": ("bodo_tpu.plan.adaptive", "try_skew_split_join"),
+    "append_sharded": ("bodo_tpu.plan.streaming_sharded", "append_sharded"),
+    "concat_tables": ("bodo_tpu.relational", "concat_tables"),
 }
 
 
@@ -232,6 +258,27 @@ def reference_routes():
     finally:
         for mod, fname, orig in saved:
             setattr(mod, fname, orig)
+
+
+@contextlib.contextmanager
+def pinned_budget(probe_bytes: int):
+    """The memory governor on in both packages, each a fresh governor
+    whose device probe returns `probe_bytes` (a shard's bytes before
+    headroom), so both derive the same budget. The port's governor is
+    dropped afterwards; the `reference` fixture puts the reference's
+    back."""
+    from bodo_tpu.runtime import memory_governor as ref_mg
+    from bodo_tpu_torch.runtime import memory_governor as port_mg
+    ref_mg.reset_governor()
+    port_mg.reset_governor()
+    ref_mg.governor().set_probe_for_testing(int(probe_bytes))
+    port_mg.governor().set_probe_for_testing(int(probe_bytes))
+    try:
+        with both_configs(mem_governor=True):
+            yield
+    finally:
+        port_mg.reset_governor()
+        ref_mg.reset_governor()
 
 
 @contextlib.contextmanager
