@@ -9,7 +9,8 @@ data.
 
 from __future__ import annotations
 
-from dataclasses import dataclass, fields
+import os
+from dataclasses import dataclass, field, fields
 
 import torch
 
@@ -66,6 +67,11 @@ class Config:
     # reads decode on the host. 0 -> always take the device route when
     # enabled.
     device_decode_min_bytes: int = 1 << 20
+    # SQL plan cache (sql/plan_cache.py): parsed ASTs pickled under this
+    # directory, keyed by query and catalog schema. Empty -> off. The
+    # variable is the port's own, not the JAX package's.
+    sql_plan_cache_dir: str = field(default_factory=lambda: os.environ.get(
+        "BODO_TPU_TORCH_SQL_PLAN_CACHE_DIR", ""))
 
 
 config = Config()

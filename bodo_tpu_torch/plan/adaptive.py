@@ -1,7 +1,18 @@
-"""Adaptive query execution: the runtime decisions of the 1D join.
+"""Adaptive query execution: stage observations and the runtime
+decisions of the join.
 
-Counterpart of the parts of bodo_tpu/plan/adaptive.py that
-relational.join_tables calls:
+Counterpart of the parts of bodo_tpu/plan/adaptive.py that the plan
+executor (plan/physical.py) and relational.join_tables call:
+  - stage observation (`observe_stage`): every executed stage's row count
+    is kept by plan key and by a fingerprint that normalizes the
+    process-local source ids away (`fingerprint`), and overrides
+    plan/stats.estimate() for the subplans planned afterwards
+    (`estimate_override`); the JAX package's stats store with no
+    directory (its default) keeps them in memory the same way, and the
+    port has no persistent store;
+  - mid-plan re-optimization (`maybe_reoptimize_join`): an inner-join
+    chain runs its leaves first and re-runs optimizer.reorder_joins on
+    their observed cardinalities;
   - the broadcast promote/demote (`join_broadcast_decision`,
     `should_demote_broadcast`): with `config.mem_governor` on (the
     default), a build side broadcasts while its device bytes fit
@@ -15,15 +26,16 @@ relational.join_tables calls:
     shard where both are 1D with the same dictionaries, else through
     `relational.concat_tables`.
 
-The JAX package's decision counters, its key sketch at every shuffle
-(`observe_shuffle`) and its suspension during degraded re-runs serve its
-tracing and its resilience layer, which the port has not; the route each
-join took is in `relational.route_counts`.
+The JAX package's decision counters and q-errors, its key sketch at
+every shuffle (`observe_shuffle`) and its suspension during degraded
+re-runs serve its tracing and its resilience layer, which the port has
+not; the route each join took is in `relational.route_counts`.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import hashlib
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
@@ -32,8 +44,155 @@ from bodo_tpu_torch.runtime.memory_governor import (governor,
                                                     table_device_bytes)
 
 
+_MAX_OBSERVED = 4096   # plan keys kept before the map is dropped
+_MAX_ENTRIES = 4096    # fingerprints kept, the oldest evicted first
+
+# observed rows by plan key (this process's plans) and by fingerprint
+_observed: Dict[tuple, float] = {}
+_store: Dict[str, int] = {}
+
+
 def enabled() -> bool:
     return bool(config.aqe)
+
+
+def reset() -> None:
+    """Drop every observation (tests)."""
+    _observed.clear()
+    _store.clear()
+
+
+# ---------------------------------------------------------------------------
+# stage observations and the estimate override
+# ---------------------------------------------------------------------------
+
+def _norm_key(node) -> tuple:
+    """Structural plan key with the process-local source ids normalized
+    out: an in-memory source by its schema and row count, a parquet scan
+    by its files' (path, mtime, size) and columns."""
+    from bodo_tpu_torch.plan import logical as L
+    if isinstance(node, L.FromPandas):
+        sig = tuple((n, d.name) for n, d in node.schema.items())
+        return ("from_pandas", sig, int(node.table.nrows))
+    if isinstance(node, L.ReadParquet):
+        from bodo_tpu_torch.plan.stats import _dataset_sig
+        files, stamps = _dataset_sig(node.path)
+        sigs = tuple((f, m, n) for f, (m, n) in zip(files, stamps))
+        return ("read_parquet", sigs, tuple(node.columns))
+    k = node.key()
+    subs = {c.key(): _norm_key(c) for c in node.children}
+
+    def walk(x):
+        if isinstance(x, tuple):
+            if x in subs:
+                return subs[x]
+            return tuple(walk(y) for y in x)
+        return x
+
+    return walk(k)
+
+
+def fingerprint(node) -> str:
+    """Stable hex digest of a node's normalized subplan key (cached on
+    the node)."""
+    fp = getattr(node, "_aqe_fp", None)
+    if fp is None:
+        fp = hashlib.sha256(repr(_norm_key(node)).encode()).hexdigest()[:24]
+        node._aqe_fp = fp
+    return fp
+
+
+def estimate_override(node) -> Optional[float]:
+    """Installed as plan.stats._runtime_override: the observed rows of a
+    subplan (by plan key, then by fingerprint), or None to keep the
+    structural estimate."""
+    if not enabled():
+        return None
+    try:
+        key = node.key()
+    except Exception:
+        return None
+    got = _observed.get(key)
+    if got is not None:
+        return got
+    try:
+        rows = _store.get(fingerprint(node))
+    except Exception:
+        return None
+    return None if rows is None else float(rows)
+
+
+def observe_stage(node, table) -> None:
+    """Record a completed stage's row count (plan/physical._exec calls
+    this after each stage materializes)."""
+    if not enabled():
+        return
+    actual = int(table.nrows)
+    key = node.key()
+    if key not in _observed and len(_observed) >= _MAX_OBSERVED:
+        _observed.clear()  # unbounded plans: drop, don't leak
+    _observed[key] = float(actual)
+    try:
+        fp = fingerprint(node)
+    except Exception:
+        return
+    _store.pop(fp, None)  # re-recorded entries become the newest
+    _store[fp] = actual
+    while len(_store) > _MAX_ENTRIES:
+        del _store[next(iter(_store))]
+
+
+# ---------------------------------------------------------------------------
+# mid-plan re-optimization
+# ---------------------------------------------------------------------------
+
+def maybe_reoptimize_join(node, exec_cb):
+    """Re-run the greedy join ordering once the chain's leaf relations
+    have observed cardinalities: the leaves execute first (their results
+    memoize on the nodes), then optimizer.reorder_joins re-plans with
+    the observations overriding the estimates. Returns the replacement
+    subplan when the order changed, else None."""
+    if not enabled():
+        return None
+    if getattr(node, "_aqe_reopt", False):
+        return None
+    node._aqe_reopt = True
+    from bodo_tpu_torch.plan import logical as L
+    if node.how != "inner":
+        return None
+    rels: list = []
+    _chain(node, node, rels)
+    if len(rels) < 3:
+        return None
+    for r in rels:
+        exec_cb(r)
+    from bodo_tpu_torch.plan import optimizer
+    new = optimizer.reorder_joins(node)
+    if new is node or new.key() == node.key():
+        return None
+    _mark_reoptimized(new)
+    return new
+
+
+def _chain(n, top, rels: list) -> None:
+    """The relations of the inner-join chain under `top`, left to right
+    (module-level: a recursive closure would be a reference cycle holding
+    the executed leaves' tables)."""
+    from bodo_tpu_torch.plan import logical as L
+    if isinstance(n, L.Join) and n.how == "inner" and \
+            n.null_equal == top.null_equal and n.suffixes == top.suffixes:
+        _chain(n.left, top, rels)
+        rels.append(n.right)
+    else:
+        rels.append(n)
+
+
+def _mark_reoptimized(n) -> None:
+    from bodo_tpu_torch.plan import logical as L
+    if isinstance(n, L.Join):
+        n._aqe_reopt = True
+    for c in n.children:
+        _mark_reoptimized(c)
 
 
 def _sample_key(t, name: str, m: int) -> Tuple[np.ndarray, int]:
@@ -190,3 +349,10 @@ def _append_splits(a, b):
         from bodo_tpu_torch.plan.streaming_sharded import append_sharded
         return append_sharded(a, b)
     return R.concat_tables([a, b])
+
+
+# install the estimate override once, at import (physical.py imports this
+# module, so any execution activates it; the hook checks config.aqe)
+from bodo_tpu_torch.plan import stats as _stats_mod  # noqa: E402
+
+_stats_mod._runtime_override = estimate_override

@@ -1,19 +1,34 @@
 """Expression nodes and their torch evaluator.
 
-Counterpart of bodo_tpu/plan/expr.py for the nodes the relational path
-uses: ColRef, Lit, DtField, IsIn, Where, Cast, UnOp, and BinOp for
+Counterpart of bodo_tpu/plan/expr.py. Every node class of the JAX
+package is here, so the SQL planner and its kernel library
+(sql/planner.py, sql/kernels.py) build the same trees, with the same
+`key()`s. The evaluator covers ColRef, Lit (numbers, strings inside a
+string predicate, datetime64 and date literals), DtField, IsIn (numeric,
+and over strings as a dictionary predicate), Where, Cast, UnOp, BinOp for
 comparisons, boolean `&`/`|` and arithmetic (`+ - * / // % ** max2
-min2`). Expressions are frozen dataclasses with a structural `key()`.
+min2`), and the dictionary-encoded string nodes: StrPredicate (eq_any,
+contains, startswith, endswith, match, fullmatch, lower_eq) is a boolean
+lookup table built on the host over the (DictMap-transformed)
+dictionary and gathered by code on the device; DictMap (substring,
+upper, lower) transforms that dictionary on the host, under a string
+predicate or at the top of a projection (relational.assign_columns'
+host pass).
+
 Null semantics follow the JAX package: comparisons and arithmetic with a
 null are null, filters treat null as False. Arithmetic runs in the dtype
 `infer_dtype` gives, both operands cast to it first (jnp's weak-typed
 literals and torch's 0-d promotion rules differ, so neither side's
-implicit promotion is relied on). Decimal arithmetic and the remaining
-nodes (string and date functions, UDFs) belong to a later slice.
+implicit promotion is relied on). The other nodes (RowUDF, MathFn,
+ToChar, MaskNull, CodeLUT, StrHostFn, StrConcat, DateTrunc, DateAdd,
+DateDiff, StrLen, NestedFn, StrToList, StrCodes), DictMap's other kinds
+and decimal arithmetic raise NotImplementedError when evaluated, naming
+the node.
 """
 
 from __future__ import annotations
 
+import re
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
@@ -126,6 +141,183 @@ class Where(Expr):
                 self.iffalse.key())
 
 
+@_frozen
+class RowUDF(Expr):
+    """Element-wise Python UDF (df.apply(axis=1) / Series.map). The
+    port keys it like the JAX package; evaluating it is not ported."""
+    func: Any
+    out_dtype: Any
+    operand: Any = None
+    def key(self):
+        return ("rowudf", _udf_serial(self.func),
+                self.out_dtype.name if self.out_dtype else None,
+                self.operand.key() if self.operand is not None else None)
+
+
+_UDF_COUNTER = [0]
+
+
+def _udf_serial(func) -> int:
+    """Stable serial per live callable (id() is reused after GC)."""
+    s = getattr(func, "__bodo_tpu_udf_serial__", None)
+    if s is None:
+        _UDF_COUNTER[0] += 1
+        s = _UDF_COUNTER[0]
+        func.__bodo_tpu_udf_serial__ = s
+    return s
+
+
+@_frozen
+class DictMap(Expr):
+    """String->string transform applied to the host dictionary; the device
+    only remaps int32 codes through a host-built table. At the top level
+    of a projection (relational.assign_columns attaches the new
+    dictionary), or under a string predicate."""
+    kind: str
+    params: Tuple
+    operand: Expr
+    def key(self):
+        return ("dictmap", self.kind, self.params, self.operand.key())
+
+    def apply_host(self, s: str) -> str:
+        if self.kind == "substring":
+            start, length = self.params
+            i = start - 1  # SQL is 1-based
+            return s[i:i + length] if length is not None else s[i:]
+        if self.kind == "upper":
+            return s.upper()
+        if self.kind == "lower":
+            return s.lower()
+        raise NotImplementedError(
+            f"the dictionary transform {self.kind!r} (DictMap) is not "
+            f"ported yet")
+
+
+@_frozen
+class MathFn(Expr):
+    """Element-wise math function (SQL kernel library)."""
+    kind: str
+    params: Tuple
+    operand: Expr
+    def key(self): return ("math", self.kind, self.params, self.operand.key())
+
+
+@_frozen
+class ToChar(Expr):
+    """TO_CHAR / TO_VARCHAR of a non-string operand."""
+    fmt: Optional[str]
+    operand: Expr
+    def key(self): return ("tochar", self.fmt, self.operand.key())
+
+
+@_frozen
+class MaskNull(Expr):
+    """Null out rows where `cond` holds (NULLIF)."""
+    cond: Expr
+    operand: Expr
+    def key(self): return ("masknull", self.cond.key(), self.operand.key())
+
+
+@_frozen
+class CodeLUT(Expr):
+    """String column from a small static vocabulary indexed by an integer
+    expression (MONTHNAME/DAYNAME)."""
+    strings: Tuple
+    operand: Expr
+    def key(self): return ("codelut", self.strings, self.operand.key())
+
+
+@_frozen
+class StrHostFn(Expr):
+    """Numeric function of a string column, evaluated per dictionary
+    entry on the host (position, ascii, to_number, to_date, ...)."""
+    kind: str
+    params: Tuple
+    operand: Expr
+    def key(self): return ("strhost", self.kind, self.params,
+                           self.operand.key())
+
+
+@_frozen
+class StrConcat(Expr):
+    """Concatenation of string columns and literal fragments."""
+    parts: Tuple
+    def key(self):
+        return ("strcat", tuple(p if isinstance(p, str) else p.key()
+                                for p in self.parts))
+
+
+
+@_frozen
+class DateTrunc(Expr):
+    unit: str
+    operand: Expr
+    def key(self): return ("dtrunc", self.unit, self.operand.key())
+
+
+@_frozen
+class DateAdd(Expr):
+    unit: str
+    amount: Expr
+    operand: Expr
+    def key(self): return ("dadd", self.unit, self.amount.key(),
+                           self.operand.key())
+
+
+@_frozen
+class DateDiff(Expr):
+    unit: str
+    left: Expr
+    right: Expr
+    def key(self): return ("ddiff", self.unit, self.left.key(),
+                           self.right.key())
+
+
+@_frozen
+class StrLen(Expr):
+    operand: Expr
+    def key(self): return ("strlen", self.operand.key())
+
+
+@_frozen
+class NestedFn(Expr):
+    kind: str
+    params: Tuple
+    operand: Expr
+    def key(self): return ("nested", self.kind, self.params,
+                           self.operand.key())
+
+
+@_frozen
+class StrToList(Expr):
+    params: Tuple
+    operand: Expr
+    def key(self): return ("strtolist", self.params, self.operand.key())
+
+
+@_frozen
+class StrCodes(Expr):
+    operand: Expr
+    def key(self): return ("strcodes", self.operand.key())
+
+
+@_frozen
+class StrPredicate(Expr):
+    """String predicate evaluated on the host dictionary -> device LUT.
+    kind: contains | startswith | endswith | match | fullmatch | eq_any |
+    lower_eq"""
+    kind: str
+    pattern: Tuple
+    operand: Expr
+    def key(self):
+        return ("strp", self.kind, self.pattern, self.operand.key())
+
+
+# nodes the evaluator does not take yet, by the JAX package's name
+_UNPORTED = (RowUDF, MathFn, ToChar, MaskNull, CodeLUT, StrHostFn,
+             StrConcat, DateTrunc, DateAdd, DateDiff, StrLen, NestedFn,
+             StrToList, StrCodes)
+
 _CMP = {"==": torch.eq, "!=": torch.ne, "<": torch.lt, "<=": torch.le,
         ">": torch.gt, ">=": torch.ge}
 _ARITH = ("+", "-", "*", "/", "//", "%", "**", "max2", "min2")
@@ -135,6 +327,10 @@ def _no_decimal(*types: dt.DType) -> None:
     if any(dt.is_decimal(t) for t in types):
         raise NotImplementedError("decimal arithmetic is not ported yet")
 
+
+# ---------------------------------------------------------------------------
+# schema-level type inference (host side)
+# ---------------------------------------------------------------------------
 
 def infer_dtype(e: Expr, schema: Dict[str, dt.DType]) -> dt.DType:
     if isinstance(e, ColRef):
@@ -147,13 +343,49 @@ def infer_dtype(e: Expr, schema: Dict[str, dt.DType]) -> dt.DType:
             return dt.INT64
         if isinstance(v, (float, np.floating)):
             return dt.FLOAT64
-        raise NotImplementedError(f"literal {v!r} is not ported yet")
+        if isinstance(v, str):
+            return dt.STRING
+        if isinstance(v, np.datetime64):
+            return dt.DATETIME
+        import datetime as _dtmod
+        if isinstance(v, _dtmod.date) and not isinstance(v, _dtmod.datetime):
+            return dt.DATE
+        raise TypeError(f"unsupported literal: {v!r}")
     if isinstance(e, Cast):
         return e.to
     if isinstance(e, DtField):
         return dt.DATE if e.field == "date" else dt.INT64
-    if isinstance(e, IsIn):
+    if isinstance(e, (IsIn, StrPredicate)):
         return dt.BOOL
+    if isinstance(e, (DictMap, CodeLUT, StrConcat, ToChar)):
+        return dt.STRING
+    if isinstance(e, (StrLen, DateDiff)):
+        return dt.INT64
+    if isinstance(e, StrCodes):
+        return dt.INT32
+    if isinstance(e, StrHostFn):
+        return {"to_number": dt.FLOAT64,
+                "to_date": dt.DATE}.get(e.kind, dt.INT64)
+    if isinstance(e, MathFn):
+        if e.kind == "sign":
+            return dt.INT64
+        if e.kind in ("ceil", "floor", "round", "round_even", "trunc"):
+            src = infer_dtype(e.operand, schema)
+            return src if src.kind in ("i", "u") else dt.FLOAT64
+        return dt.FLOAT64
+    if isinstance(e, (MaskNull, DateTrunc)):
+        return infer_dtype(e.operand, schema)
+    if isinstance(e, DateAdd):
+        src = infer_dtype(e.operand, schema)
+        if src is dt.DATE and e.unit in ("hour", "minute", "second"):
+            return dt.DATETIME
+        return src
+    if isinstance(e, RowUDF):
+        return e.out_dtype if e.out_dtype is not None else dt.FLOAT64
+    if isinstance(e, (NestedFn, StrToList)):
+        raise NotImplementedError(
+            f"{type(e).__name__}: nested types (table/nested.py) are not "
+            f"ported yet")
     if isinstance(e, UnOp):
         if e.op in ("isna", "notna", "~"):
             return dt.BOOL
@@ -178,12 +410,49 @@ def infer_dtype(e: Expr, schema: Dict[str, dt.DType]) -> dt.DType:
         if dt.is_numeric(lt) and dt.is_numeric(rt):
             return dt.common_numeric(lt, rt)
         return lt
-    raise NotImplementedError(f"expression {e!r} is not ported yet")
+    raise TypeError(f"cannot infer dtype of {e}")
+
+
+def expr_columns(e: Expr) -> set:
+    """Free column references (for projection pushdown)."""
+    if isinstance(e, ColRef):
+        return {e.name}
+    if isinstance(e, Lit):
+        return set()
+    if isinstance(e, BinOp):
+        return expr_columns(e.left) | expr_columns(e.right)
+    if isinstance(e, RowUDF):
+        if e.operand is not None:
+            return expr_columns(e.operand)
+        return {"*"}  # may touch any column: disables pruning above it
+    if isinstance(e, (UnOp, Cast, DtField, IsIn, StrPredicate, DictMap,
+                      StrLen, MathFn, StrHostFn, CodeLUT, DateTrunc,
+                      StrCodes, StrToList, NestedFn, ToChar)):
+        return expr_columns(e.operand)
+    if isinstance(e, Where):
+        return (expr_columns(e.cond) | expr_columns(e.iftrue)
+                | expr_columns(e.iffalse))
+    if isinstance(e, MaskNull):
+        return expr_columns(e.cond) | expr_columns(e.operand)
+    if isinstance(e, DateAdd):
+        return expr_columns(e.amount) | expr_columns(e.operand)
+    if isinstance(e, DateDiff):
+        return expr_columns(e.left) | expr_columns(e.right)
+    if isinstance(e, StrConcat):
+        out = set()
+        for p in e.parts:
+            if isinstance(p, Expr):
+                out |= expr_columns(p)
+        return out
+    return set()
 
 
 # fields with fixed output ranges regardless of input
 _FIELD_RANGES = {"month": (1, 12), "hour": (0, 23), "day": (1, 31),
-                 "dayofweek": (0, 6), "weekday": (0, 6)}
+                 "dayofweek": (0, 6), "weekday": (0, 6),
+                 "quarter": (1, 4), "minute": (0, 59), "second": (0, 59),
+                 "week": (1, 53), "weekofyear": (1, 53),
+                 "dayofyear": (1, 366)}
 
 
 def expr_range(e: Expr, columns) -> Optional[tuple]:
@@ -233,18 +502,83 @@ def expr_range(e: Expr, columns) -> Optional[tuple]:
             if info.min <= r[0] and r[1] <= info.max:
                 return r
         return None
+    if isinstance(e, MaskNull):
+        return expr_range(e.operand, columns)
     return None
 
 
+# ---------------------------------------------------------------------------
+# evaluation (device side)
+# ---------------------------------------------------------------------------
+
 def _lit_tensor(v, device) -> torch.Tensor:
-    """A literal with the JAX package's 64-bit literal types."""
+    """A literal in the JAX package's physical representation: 64-bit
+    numbers, datetime64 as int64 ns ticks, a date as int32 days."""
     if isinstance(v, (bool, np.bool_)):
         return torch.tensor(bool(v), device=device)
     if isinstance(v, (int, np.integer)):
         return torch.tensor(int(v), dtype=torch.int64, device=device)
     if isinstance(v, (float, np.floating)):
         return torch.tensor(float(v), dtype=torch.float64, device=device)
-    raise NotImplementedError(f"literal {v!r} is not ported yet")
+    if isinstance(v, str):
+        raise TypeError(
+            "string literal outside a string predicate: string comparisons "
+            "become StrPredicate (the SQL planner does this)")
+    if isinstance(v, np.datetime64):
+        return torch.tensor(int(v.astype("datetime64[ns]").astype(np.int64)),
+                            dtype=torch.int64, device=device)
+    import datetime as _dtmod
+    if isinstance(v, _dtmod.date) and not isinstance(v, _dtmod.datetime):
+        days = (np.datetime64(v, "D") - np.datetime64(0, "D")).astype(
+            np.int64)
+        return torch.tensor(int(days), dtype=torch.int32, device=device)
+    raise TypeError(f"unsupported literal: {v!r}")
+
+
+def _dictionary_codes(col: Expr, tree, dicts):
+    """(host dictionary after the DictMap chain over `col`, device codes,
+    valid) of a string operand: a column under zero or more DictMaps."""
+    transforms = []
+    while isinstance(col, DictMap):
+        transforms.append(col)
+        col = col.operand
+    if isinstance(col, CodeLUT):
+        raise NotImplementedError("CodeLUT (MONTHNAME/DAYNAME) evaluation "
+                                  "is not ported yet")
+    if not isinstance(col, ColRef):
+        raise TypeError("string predicates must apply to a column")
+    dic0 = dicts.get(col.name)
+    if dic0 is None:
+        raise TypeError(f"column {col.name} has no dictionary")
+    dic = list(dic0)
+    for tr in reversed(transforms):
+        dic = [tr.apply_host(s) for s in dic]
+    d, v = tree[col.name]
+    return dic, d, v
+
+
+def _str_predicate_lut(e: StrPredicate, dic) -> np.ndarray:
+    """The predicate on every dictionary entry (one entry at least)."""
+    lut = np.zeros(max(len(dic), 1), dtype=bool)
+    pats = list(e.pattern)
+    for i, s in enumerate(dic):
+        if e.kind == "contains":
+            lut[i] = pats[0] in s
+        elif e.kind == "startswith":
+            lut[i] = s.startswith(tuple(pats))
+        elif e.kind == "endswith":
+            lut[i] = s.endswith(tuple(pats))
+        elif e.kind == "match":
+            lut[i] = re.match(pats[0], s) is not None
+        elif e.kind == "fullmatch":
+            lut[i] = re.fullmatch(pats[0], s) is not None
+        elif e.kind == "eq_any":
+            lut[i] = s in pats
+        elif e.kind == "lower_eq":
+            lut[i] = s.lower() == pats[0]
+        else:
+            raise ValueError(f"unknown str predicate {e.kind}")
+    return lut
 
 
 def eval_expr(e: Expr, tree: Dict[str, Tuple], dicts: Dict[str, np.ndarray],
@@ -294,12 +628,25 @@ def eval_expr(e: Expr, tree: Dict[str, Tuple], dicts: Dict[str, np.ndarray],
         return dtops.FIELDS[e.field](d), v
     if isinstance(e, IsIn):
         if infer_dtype(e.operand, schema) is dt.STRING:
-            raise NotImplementedError("IsIn over strings is not ported yet")
+            return eval_expr(StrPredicate("eq_any", tuple(e.values),
+                                          e.operand), tree, dicts, schema)
         d, v = eval_expr(e.operand, tree, dicts, schema)
         acc = torch.zeros(d.shape, dtype=torch.bool, device=d.device)
         for val in e.values:
             acc = acc | (d == val)
         return acc, v
+    if isinstance(e, StrPredicate):
+        dic, d, v = _dictionary_codes(e.operand, tree, dicts)
+        lut = torch.from_numpy(_str_predicate_lut(e, dic)).to(d.device)
+        return lut[torch.clamp(d.to(torch.int64), 0, len(dic) - 1
+                               if dic else 0)], v
+    if isinstance(e, DictMap):
+        raise TypeError("a string transform (DictMap) must sit at the top "
+                        "level of a projection or under a string predicate")
+    if isinstance(e, _UNPORTED):
+        raise NotImplementedError(
+            f"evaluating {type(e).__name__} (bodo_tpu/plan/expr.py) is not "
+            f"ported yet")
     if isinstance(e, Where):
         c, cv = eval_expr(e.cond, tree, dicts, schema)
         t, tv = eval_expr(e.iftrue, tree, dicts, schema)
@@ -349,7 +696,7 @@ def eval_expr(e: Expr, tree: Dict[str, Tuple], dicts: Dict[str, np.ndarray],
         if e.op in _CMP:
             return _CMP[e.op](ld, rd), valid
         return _arith(e.op, ld, rd, infer_dtype(e, schema).torch), valid
-    raise NotImplementedError(f"expression {e!r} is not ported yet")
+    raise TypeError(f"cannot evaluate {e}")
 
 
 def _arith(op: str, ld, rd, rdt: torch.dtype):

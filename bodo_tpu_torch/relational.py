@@ -21,15 +21,21 @@ same order, so both packages take the same route on the same data.
 
 `groupby_agg` takes the decomposable aggregations (ops/groupby.py) on
 every route, and `reduce_table` reduces whole columns to host scalars
-(REP and 1D).
+(REP and 1D). The plan executor (plan/physical.py) also calls
+`head_table` (LIMIT), `select_columns`, `window_table` (its `rowid` op)
+and `assign_columns`' host pass for a top-level DictMap (SQL SUBSTRING,
+UPPER: the new dictionary is built on the host, the codes remapped on
+the device).
 
 Where the JAX package would go on to a route the port has not ported
-(the colocated groupby of non-decomposable aggregations on 1D tables;
-the groupby's quantiles `_quantile_seg`, `_nunique`, `_mode` and
-`_groupby_agg_with_listagg`; the whole-column `_reduce_quantile`;
-aggregation over decimals) the port raises NotImplementedError naming
-it. A join without keys other than the cross join raises ValueError,
-where the JAX package fails inside its sort join.
+(the window ops but `rowid`; the projections of StrConcat, ToChar,
+StrToList and NestedFn; the colocated groupby of non-decomposable
+aggregations on 1D tables; the groupby's quantiles `_quantile_seg`,
+`_nunique`, `_mode` and `_groupby_agg_with_listagg`; the whole-column
+`_reduce_quantile`; aggregation over decimals) the port raises
+NotImplementedError naming it. A join without keys other than the
+cross join raises ValueError, where the JAX package fails inside its
+sort join.
 
 `route_counts` counts the routes taken, so tests and the chip smoke can
 show which one ran.
@@ -46,12 +52,12 @@ from bodo_tpu_torch.config import config
 from bodo_tpu_torch.ops import cuda_kernels as CK
 from bodo_tpu_torch.ops import hashtable as HT
 from bodo_tpu_torch.ops import kernels as K
-from bodo_tpu_torch.ops.groupby import (DECOMPOSE, HASH_OPS, _accumulated,
-                                        _from_bits, _min_max_ident,
-                                        _np_dtype, _ordered, _segment_agg,
-                                        _widened, agg_dtype, result_dtype,
-                                        groupby_local, groupby_local_hashed,
-                                        segment_sum)
+from bodo_tpu_torch.ops.groupby import (DECOMPOSE, HASH_OPS, SortedSegments,
+                                        _accumulated, _from_bits,
+                                        _min_max_ident, _np_dtype, _ordered,
+                                        _segment_agg, _widened, agg_dtype,
+                                        result_dtype, groupby_local,
+                                        groupby_local_hashed, segment_sum)
 from bodo_tpu_torch.ops.hashing import dest_shard, hash_columns
 from bodo_tpu_torch.ops.join import cross_local, join_count, join_local
 from bodo_tpu_torch.ops.sort import sort_local, sort_sharded
@@ -170,7 +176,21 @@ def rebucket(t: Table) -> Table:
 
 def assign_columns(t: Table, new: Dict[str, Expr]) -> Table:
     """Add/replace columns computed from expressions (df.assign); every
-    expression sees the input table."""
+    expression sees the input table.
+
+    A top-level DictMap (a string->string transform, SQL SUBSTRING or
+    UPPER) runs on the host dictionary: the mapped strings are
+    deduplicated into the new sorted dictionary, and the device only
+    remaps the codes through that table."""
+    from bodo_tpu_torch.plan.expr import (DictMap, NestedFn, StrConcat,
+                                          StrToList, ToChar)
+    for e in new.values():
+        if isinstance(e, (StrConcat, StrToList, NestedFn, ToChar)):
+            raise NotImplementedError(
+                f"the {type(e).__name__} projection of assign_columns "
+                f"(bodo_tpu/relational.py) is not ported yet")
+    dictmaps = {n: e for n, e in new.items() if isinstance(e, DictMap)}
+    new = {n: e for n, e in new.items() if n not in dictmaps}
     schema = _schema(t)
     dicts = _dicts(t)
     tree = _tree(t)
@@ -188,7 +208,78 @@ def assign_columns(t: Table, new: Dict[str, Expr]) -> Table:
         else:
             cols[name] = Column(d, v, dtype, None,
                                 expr_range(e, t.columns))
+    for name, e in dictmaps.items():
+        cols[name] = _dictmap_column(t, e)
     return Table(cols, t.nrows, t.distribution, t.counts)
+
+
+def _dictmap_column(t: Table, e: Expr) -> Column:
+    """A DictMap chain over a string column as a new dictionary column."""
+    from bodo_tpu_torch.plan.expr import DictMap
+    chain = []
+    base = e
+    while isinstance(base, DictMap):
+        chain.append(base)
+        base = base.operand
+    if not isinstance(base, ColRef):
+        raise NotImplementedError(
+            f"a string transform over {type(base).__name__} is not ported "
+            f"yet (the DictMap operand must be a column)")
+    src = t.columns[base.name]
+    if src.dtype is not dt.STRING:
+        raise NotImplementedError(
+            f"string function over non-string column {base.name!r} "
+            f"({src.dtype.name}): cast to varchar is not supported")
+    vals = list(src.dictionary if src.dictionary is not None else [])
+    for tr in reversed(chain):
+        vals = [tr.apply_host(s) for s in vals]
+    mapped = np.array(vals, dtype=str)
+    nd, remap = (np.unique(mapped, return_inverse=True)
+                 if len(mapped) else (mapped, np.zeros(0, np.int64)))
+    mp = torch.from_numpy(remap.astype(np.int32) if len(remap)
+                          else np.zeros(1, np.int32)).to(src.data.device)
+    codes = mp[torch.clamp(src.data.to(torch.int64), 0,
+                           max(len(vals) - 1, 0))]
+    return Column(codes, src.valid, dt.STRING, nd)
+
+
+def select_columns(t: Table, names: Sequence[str]) -> Table:
+    return t.select(list(names))
+
+
+def head_table(t: Table, n: int) -> Table:
+    """The first `n` rows (LIMIT) as a replicated table; a 1D table is
+    gathered first, so its rows come in shard order."""
+    g = t.gather() if t.distribution == ONED else t
+    n = min(n, g.nrows)
+    return Table(dict(g.columns), n, REP, None)
+
+
+def window_table(t: Table, specs: Sequence[Tuple[str, str, Optional[int],
+                                                 str]]) -> Table:
+    """Row-aligned window transforms: specs = [(col, op, param, outname)].
+    The port has the `rowid` op, the global row position (shard i's rows
+    after the rows of shards 0..i-1, -1 on padding), which the SQL
+    planner's EXISTS decorrelation tags rows with. The cumulative,
+    rolling, shift and diff ops raise NotImplementedError."""
+    res = t.with_columns(t.columns)
+    for col, op, param, oname in specs:
+        if op != "rowid":
+            raise NotImplementedError(
+                f"the window op {op!r} (bodo_tpu/ops/window.py) is not "
+                f"ported yet")
+        if t.distribution == ONED:
+            per = t.shard_capacity
+            goff = np.concatenate([[0], np.cumsum(t.counts)[:-1]])
+            local = torch.arange(per, dtype=torch.int64, device=t.device)
+            rid = torch.cat([local + int(off) for off in goff])
+        else:
+            rid = torch.arange(t.capacity, dtype=torch.int64,
+                               device=t.device)
+        rid = torch.where(_padmask(t), rid, torch.full(
+            (), -1, dtype=torch.int64, device=t.device))
+        res.columns[oname] = Column(rid, None, dt.INT64, None)
+    return res
 
 
 def assign_categorical(t: Table, name: str, code_expr: Expr,
@@ -585,8 +676,9 @@ def dense_agg_tail(tree, live, kn, vn, specs, sizes, los, n_slots: int,
                 for op, cnt_idx, s_idx in plan]
     else:
         present = segment_sum(padmask.to(torch.int32), slot, n_slots) > 0
+        segs = SortedSegments(slot, n_slots)
         outs = [_segment_agg(op, tree[c][0], tree[c][1], slot, padmask,
-                             n_slots)
+                             n_slots, segs)
                 for c, op in zip(vn, specs)]
     rem = torch.arange(n_slots, dtype=torch.int32, device=slot.device)
     key_cols = [None] * len(kn)

@@ -44,8 +44,8 @@ per source, all started together), then:
      - the NYC-taxi relational pipeline at 20,000,000 trip rows (about
        one month of NYC HVFHV trips), through the dense-LUT join
        (lut_gather) and the dense groupby, against its numpy oracle (keys
-       and counts exact, avg_miles within rtol 1e-9: float64 sums
-       accumulated with atomics, in another order);
+       and counts exact, avg_miles within rtol 1e-9: float64 sums in
+       another order);
      - the taxi read: the 20,000,000-row trips file as gen_taxi_data
        writes it (pandas' to_parquet with pyarrow's defaults: 20 row
        groups, snappy, dictionary pages with the fall-back to PLAIN),
@@ -139,7 +139,20 @@ per source, all started together), then:
      launch groupby_sum zero times: the reference's gates refuse f64
      sums and means and any aggregation but sum, count, size and mean;
   3. runs the taxi pipeline at 20,000 rows, which takes the packed/hashed
-     groupby route, against the oracle.
+     groupby route, against the oracle;
+  4. runs TPC-H at scale factor 1 through the port's SQL entry point
+     (run_tpch): gen_tpch(n_orders=1,500,000, seed=0), about 6.0M
+     lineitem rows, registered on a BodoSQLContext on the card; each of
+     the 22 queries through ctx.sql(q).to_pandas(), cold then warm, with
+     the route and launch counts set to 0 just before the cold run and
+     read just after, held against sqlite on the same data (computed in
+     a process of its own while the frames are generated and
+     registered: row counts, integers, strings, dates and the ORDER BY
+     row order exact, float64 sums and means unrounded within rtol
+     1e-9); Q16 (COUNT(DISTINCT), the
+     groupby's _nunique) must raise NotImplementedError naming it; at
+     least 20 queries must match, and lut_gather or hash_probe must
+     launch in the phase.
 
 Any failure raises and exits non-zero. Without a CUDA device it exits
 non-zero before printing any result. The last line is one JSON object
@@ -176,11 +189,14 @@ READ_ROW_GROUPS = 20       # 1,048,576-row row groups of 20M rows
 # gate admits (2^24, a multiple of the capacity rounding)
 F32_ROWS = 1 << 24
 SUM_TOL_TEXT = "1e-5 * sum(|x|) per slot"
-# the aggregation phase against pandas: float64 sums and moments with
-# atomics, in another order and by another algorithm (pandas' Welford)
+# the aggregation phase against pandas: float64 sums and moments in
+# another order and by another algorithm (pandas' Welford)
 AGG_RTOL = 1e-9            # sumnull, var, std, var0, std0: relative
 MOMENT_TOL = 1e-7          # skew, kurt: |delta| <= MOMENT_TOL * (1 + |x|)
 STAGE_REPS = 5             # warm stage times: the median of 5 runs
+# TPC-H at scale factor 1 (workloads/tpch.gen_tpch): 1.5M orders
+TPCH_ORDERS = 1_500_000
+TPCH_RTOL = 1e-9           # float64 sums and means against sqlite
 
 
 def device_ms(fn, reps: int = 20, warmup: int = 3,
@@ -2290,6 +2306,117 @@ def run_cross(dim, dim_np):
           f"s rtol={AVG_RTOL})")
 
 
+
+def start_tpch_oracle(tmp: str):
+    """Start the sqlite oracle of the TPC-H phase in a process of its own
+    (workloads/tpch.sqlite_results: the same frames from the same seed,
+    loaded into a database file with its join keys indexed, the 22
+    queries on 6 threads), so it runs while the phase generates and
+    registers its frames; no timed phase runs beside it. Returns (the
+    process, the path its results are pickled to)."""
+    out = os.path.join(tmp, "tpch_oracle.pkl")
+    with open(os.path.join(tmp, "tpch_oracle.err"), "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "bodo_tpu_torch.workloads.tpch",
+             "--n-orders", str(TPCH_ORDERS), "--seed", str(SEED),
+             "--db", os.path.join(tmp, "tpch.db"), "--out", out],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            stdout=subprocess.DEVNULL, stderr=err)
+    return proc, out
+
+
+def run_tpch(tmp: str, procs: list):
+    """TPC-H at scale factor 1 through the port's SQL entry point: the
+    eight frames of gen_tpch(n_orders=TPCH_ORDERS, seed=SEED) registered
+    on a BodoSQLContext on the card (strings as dictionary codes on the
+    card, their dictionaries on the host), each query run cold and then
+    warm through ctx.sql(q).to_pandas() with the route and launch counts
+    set to 0 just before the cold run and read just after, and held
+    against sqlite on the same data (tpch.check_against_sqlite: row
+    counts, integers, strings, dates and the ORDER BY row order exact,
+    float64 within TPCH_RTOL). Q16 (tpch.UNSUPPORTED) must raise
+    NotImplementedError naming _nunique. The oracle's process is started
+    first and appended to `procs`. Returns the launches of the phase by
+    kernel."""
+    import pickle
+
+    import torch
+    from bodo_tpu_torch import relational as R
+    from bodo_tpu_torch.ops import cuda_kernels as CK
+    from bodo_tpu_torch.sql import BodoSQLContext
+    from bodo_tpu_torch.workloads import tpch as TP
+
+    oracle = start_tpch_oracle(tmp)
+    procs.append(oracle[0])
+    t0 = time.perf_counter()
+    data = TP.gen_tpch(n_orders=TPCH_ORDERS, seed=SEED)
+    gen_s = time.perf_counter() - t0
+    rows = {n: len(df) for n, df in data.items()}
+    t0 = time.perf_counter()
+    ctx = BodoSQLContext(data, device="cuda")
+    torch.cuda.synchronize()
+    register_s = time.perf_counter() - t0
+    del data
+    dev_bytes = torch.cuda.memory_allocated()
+    print(f"tpch SF1: rows={rows} gen_s={gen_s:.3f} "
+          f"register_s={register_s:.3f} memory_allocated={dev_bytes}")
+
+    proc, path = oracle
+    t0 = time.perf_counter()
+    if proc.wait(timeout=900) != 0:
+        with open(os.path.join(os.path.dirname(path),
+                               "tpch_oracle.err")) as f:
+            raise RuntimeError(f"tpch sqlite oracle failed:\n"
+                               f"{f.read()[-4000:]}")
+    with open(path, "rb") as f:
+        ref = pickle.load(f)
+    print(f"tpch SF1 sqlite oracle (its own process, 6 threads, join keys "
+          f"indexed): gen_s={ref['gen_s']:.3f} load_s={ref['load_s']:.3f} "
+          f"wall_s={ref['wall_s']:.3f}, waited {time.perf_counter() - t0:.3f}"
+          f" s for it; query_s=" + json.dumps(
+              {q: round(v, 3) for q, v in sorted(ref["query_s"].items())}))
+
+    total = {k: 0 for k in CK.launches}
+    ran = 0
+    for q in sorted(TP.QUERIES):
+        sql = TP.QUERIES[q]
+        if q in TP.UNSUPPORTED:
+            try:
+                ctx.sql(sql).to_pandas()
+            except NotImplementedError as e:
+                if TP.UNSUPPORTED[q] not in str(e):
+                    raise
+                print(f"tpch Q{q}: raises NotImplementedError: {e}")
+                continue
+            raise AssertionError(f"tpch Q{q} ran; expected it to raise "
+                                 f"naming {TP.UNSUPPORTED[q]}")
+        got, cold_s, routes, launches, peak = _drive(
+            lambda: ctx.sql(sql).to_pandas())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ctx.sql(sql).to_pandas()
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        TP.check_against_sqlite(got, ref["results"][q], sql, TPCH_RTOL,
+                                f"tpch Q{q}")
+        for k, v in launches.items():
+            total[k] += v
+        ran += 1
+        print(f"tpch Q{q}: rows={len(got)} cold_s={cold_s:.4f} "
+              f"warm_s={warm_s:.4f} max_memory_allocated={peak} "
+              f"routes={routes} kernel_launches="
+              f"{ {k: v for k, v in launches.items() if v} } "
+              f"matches sqlite")
+    if ran < 20:
+        raise AssertionError(f"tpch: only {ran} queries ran")
+    if total["lut_gather"] + total["hash_probe"] < 1:
+        raise AssertionError("tpch: no lut_gather or hash_probe launch")
+    print(f"tpch SF1: {ran} of {len(TP.QUERIES)} queries match sqlite "
+          f"(floats unrounded, rtol={TPCH_RTOL}); kernel launches over "
+          f"the phase {total}")
+    return total
+
+
 def range_launches_per_pass(launches, calls, label: str) -> None:
     """One range_partition call, and so one launch, a sample-sort pass:
     the calls of a later run (as many as its passes) against the first
@@ -2322,6 +2449,22 @@ def main() -> int:
           f"cuda {torch.version.cuda}")
     dev = torch.device("cuda")
 
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tpch_")
+    procs = []
+    try:
+        return _main(CK, dev, tmp, procs)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        import shutil
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _main(CK, dev, tmp: str, procs: list) -> int:
+    import torch
     t0 = time.perf_counter()
     CK.build()
     print(f"build: {sorted(CK.SOURCES)} in {time.perf_counter() - t0:.2f}s")
@@ -2390,6 +2533,9 @@ def main() -> int:
                                  f"main path")
     run_join_matrix()
     run_taxi(SMALL_ROWS, ("join_dense", "groupby_hashed"), "small")
+    tpch = run_tpch(tmp, procs)
+    lut["tpch_launches"] = tpch["lut_gather"]
+    probe["tpch_launches"] = tpch["hash_probe"]
 
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -1,7 +1,10 @@
 """The port's column kernels against the JAX package's on the same inputs:
 hashes and key encodings bit-identical (uint64 bits held in int64),
 datetime fields (pre-1970 included), compaction, segment aggregations,
-the multi-key sort and the hash-table claim.
+segment_sum (the sorted per-segment reduction of float sums is
+bit-identical on the CPU to jax.ops.segment_sum's, out-of-range ids
+dropped, float64 and float32, an empty segment 0), the multi-key sort
+and the hash-table claim.
 
 One test runs every check (see tests/torch_parity.py on why each
 test_torch_* file holds one test)."""
@@ -213,6 +216,75 @@ def _check_segment_agg(op):
                                    err_msg=op)
 
 
+def _check_segment_sum():
+    import jax
+    import jax.numpy as jnp
+    from bodo_tpu_torch.ops.groupby import SortedSegments, segment_sum
+    r = np.random.default_rng(9)
+    seg = r.integers(-3, 45, N).astype(np.int32)  # 40..44 and < 0 dropped
+    for data in (r.normal(size=N) * 1e3, r.normal(size=N).astype(np.float32),
+                 r.integers(-9, 9, N)):
+        want = jax.ops.segment_sum(jnp.asarray(data), jnp.asarray(seg), 41)
+        got = segment_sum(_t(data), _t(seg), 41)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want),
+                                      err_msg=str(data.dtype))
+    # one SortedSegments shared by several float sums, and the sort
+    # route's presorted ids, give the same bits
+    st, ss = _t(seg), np.sort(seg.clip(0))
+    segs = SortedSegments(st, 41)
+    pre = SortedSegments(_t(ss), 41, presorted=True)
+    for data in (r.normal(size=N) * 1e3, r.normal(size=N).astype(np.float32),
+                 r.normal(size=N)):
+        for s_np, s_t, shared in ((seg, st, segs), (ss, pre.seg, pre)):
+            want = jax.ops.segment_sum(jnp.asarray(data), jnp.asarray(s_np),
+                                       41)
+            got = segment_sum(_t(data), s_t, 41, shared)
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want),
+                                          err_msg=str(shared.presorted))
+    # CUDA's order (levels of pieces of PIECE rows, here 3): within
+    # rtol 1e-12 of the float64 sums, exact on integer-valued floats
+    import bodo_tpu_torch.ops.groupby as G
+    piece = G.PIECE
+    G.PIECE = 3
+    try:
+        for s_np, shared in ((seg, SortedSegments(st, 41)),
+                             (ss, SortedSegments(_t(ss), 41,
+                                                 presorted=True))):
+            ok = (s_np >= 0) & (s_np < 41)
+            x = r.normal(size=N) * 1e3
+            want = np.zeros(41)
+            np.add.at(want, s_np[ok], x[ok])
+            np.testing.assert_allclose(
+                shared.sum(_t(x), in_pieces=True).numpy(), want,
+                rtol=1e-12)
+            xi = r.integers(-99, 99, N).astype(np.float64)
+            want = np.zeros(41)
+            np.add.at(want, s_np[ok], xi[ok])
+            np.testing.assert_array_equal(
+                shared.sum(_t(xi), in_pieces=True).numpy(), want)
+            levels, held = shared.levels()
+            assert len(levels) > 2 and levels[0][0].shape[0] == N
+            counts = [lv[0].shape[0] for lv in levels[1:]] + [len(held)]
+            for (_, col, count), values in zip(levels, counts):
+                assert int(col.max()) < 3 and count == values
+            assert held.tolist() == sorted(set(np.where(ok, s_np, 41)))
+        # segments of 2 values across every multiple of PIECE, and one
+        # of 1,000: ceil(k / PIECE) pieces a segment, so the levels end
+        pairs = np.concatenate([[0], np.repeat(np.arange(1, 30), 2),
+                                np.full(1000, 30)])
+        shared = SortedSegments(_t(pairs), 31, presorted=True)
+        x = r.normal(size=len(pairs))
+        want = np.zeros(31)
+        np.add.at(want, pairs, x)
+        np.testing.assert_allclose(
+            shared.sum(_t(x), in_pieces=True).numpy(), want, rtol=1e-12)
+        assert len(shared.levels()[0]) == 7  # 1,000 -> 334 -> ... -> 1
+    finally:
+        G.PIECE = piece
+    assert segment_sum(_t(np.zeros(0)), _t(np.zeros(0, np.int32)),
+                       3).tolist() == [0.0, 0.0, 0.0]
+
+
 def _check_sort_local_permutation():
     import jax.numpy as jnp
     from bodo_tpu.ops.sort import sort_local as ref_sort
@@ -261,5 +333,6 @@ def test_ops_match_reference(reference):
     _check_compact_is_stable()
     for op in ("count", "size", "sum", "mean"):
         _check_segment_agg(op)
+    _check_segment_sum()
     _check_sort_local_permutation()
     _check_sort_ties_signed_zeros()

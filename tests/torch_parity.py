@@ -27,13 +27,28 @@ keeps at process level:
     governor on replaces it with a fresh one (`reset_governor`) before
     it pins a probe, and the fixture puts the old one back;
   - every field of the port's config, which is process state of the
-    worker too.
+    worker too;
+  - what the reference's SQL path (BodoSQLContext.sql -> plan/physical
+    execute) records, for each of its modules already imported: the
+    stats store of observed stage cardinalities
+    (bodo_tpu.runtime.stats_store._store: the scope gets a fresh
+    in-memory store, and the old one is put back), the SQL plan cache's
+    counters (bodo_tpu.sql.plan_cache._stats, _by_session), explain's
+    query records (bodo_tpu.plan.explain._queries, _last_qid), elastic's
+    stage registry (bodo_tpu.runtime.elastic._qseq, _QSTORE) and the
+    semantic result cache's counters (the cache's _c, _sess and
+    saved_wall_s). `sql_records_digest` fingerprints all of them, so a
+    SQL test can check that none changed.
 
 It also turns the reference's progcheck off (ROADMAP fault F1: progcheck
 breaks on this tree's jax), and its fusion and fused-join caches off
 (config.fusion, config.fusion_join): the reference's hash join would
 otherwise keep its build table in `fusion_join._build_cache`, which
-would outlive the test in the worker. The memory governor is off in
+would outlive the test in the worker. Its SQL executor's result cache,
+elastic stage registry and plan validation are off too
+(config.result_cache, config.elastic, config.plan_validate): the first
+two would keep results and checkpoints past the test, and the port has
+none of the three (ROADMAP Queue 3, G2-G5). The memory governor is off in
 both packages (config.mem_governor), so their broadcast decisions take
 the rows-only rule unless a test pins a budget on both sides
 (`pinned_budget`). Its comm accounting is off
@@ -57,7 +72,9 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import hashlib
 import os
+import sys
 from typing import Dict
 
 import numpy as np
@@ -121,6 +138,114 @@ def _restore_records(saved) -> None:
             setattr(mod, name, snap)
 
 
+# the reference's modules on its SQL path whose records the scope keeps
+_SQL_MODULES = ("bodo_tpu.runtime.stats_store", "bodo_tpu.sql.plan_cache",
+                "bodo_tpu.plan.explain", "bodo_tpu.runtime.elastic",
+                "bodo_tpu.runtime.result_cache")
+
+
+def _sql_records():
+    """Snapshots of the SQL path's records, for each of its modules that
+    is imported (a module imported later starts from nothing)."""
+    mods = {n: sys.modules.get(n) for n in _SQL_MODULES}
+    out = {}
+    ss = mods["bodo_tpu.runtime.stats_store"]
+    if ss is not None:
+        out["stats_store"] = (ss, ss._store, ss._store_dir)
+    pc = mods["bodo_tpu.sql.plan_cache"]
+    if pc is not None:
+        out["plan_cache"] = (pc, dict(pc._stats),
+                             copy.deepcopy(pc._by_session))
+    ex = mods["bodo_tpu.plan.explain"]
+    if ex is not None:
+        out["explain"] = (ex, copy.copy(ex._queries), ex._last_qid)
+    el = mods["bodo_tpu.runtime.elastic"]
+    if el is not None:
+        out["elastic"] = (el, el._qseq, el._QSTORE,
+                          dict(el._QSTORE._stats), el._QSTORE._bytes)
+    rc = mods["bodo_tpu.runtime.result_cache"]
+    if rc is not None and rc._cache is not None:
+        c = rc._cache
+        out["result_cache"] = (rc, c, dict(c._c), copy.deepcopy(c._sess),
+                               c.saved_wall_s)
+    return out
+
+
+def _fresh_stats_store(saved) -> None:
+    """A fresh in-memory stats store for the scope, bound to the current
+    directory setting so get_store() keeps it."""
+    if "stats_store" not in saved:
+        return
+    from bodo_tpu.config import config
+    ss = saved["stats_store"][0]
+    ss._store = ss.StatsStore(None)
+    ss._store_dir = config.stats_store_dir
+
+
+def _restore_sql_records(saved) -> None:
+    if "stats_store" in saved:
+        ss, store, store_dir = saved["stats_store"]
+        ss._store, ss._store_dir = store, store_dir
+    if "plan_cache" in saved:
+        pc, stats, by_session = saved["plan_cache"]
+        pc._stats.clear()
+        pc._stats.update(stats)
+        pc._by_session.clear()
+        pc._by_session.update(by_session)
+    if "explain" in saved:
+        ex, queries, last = saved["explain"]
+        ex._queries.clear()
+        ex._queries.update(queries)
+        ex._last_qid = last
+    if "elastic" in saved:
+        el, qseq, qstore, qstats, qbytes = saved["elastic"]
+        el._qseq, el._QSTORE = qseq, qstore
+        qstore._stats.clear()
+        qstore._stats.update(qstats)
+        qstore._bytes = qbytes
+    if "result_cache" in saved:
+        rc, c, counters, sess, saved_wall = saved["result_cache"]
+        rc._cache = c
+        c._c.clear()
+        c._c.update(counters)
+        c._sess.clear()
+        c._sess.update(sess)
+        c.saved_wall_s = saved_wall
+
+
+def sql_records_digest() -> str:
+    """Digest of the reference's SQL-path records (the stats store's
+    identity and entries, the plan cache's counters, explain's query
+    ids, elastic's sequence and store, the result cache's identity,
+    entry count and counters); modules not imported count as absent."""
+    parts = []
+    for name in _SQL_MODULES:
+        mod = sys.modules.get(name)
+        if mod is None:
+            parts.append((name, None))
+        elif name.endswith("stats_store"):
+            st = mod._store
+            parts.append((name, id(st), mod._store_dir,
+                          None if st is None else sorted(
+                              (k, v["rows"], v["bytes"])
+                              for k, v in st._data.items())))
+        elif name.endswith("plan_cache"):
+            parts.append((name, sorted(mod._stats.items()),
+                          repr(sorted(mod._by_session.items()))))
+        elif name.endswith("explain"):
+            parts.append((name, list(mod._queries), mod._last_qid))
+        elif name.endswith("elastic"):
+            q = mod._QSTORE
+            parts.append((name, mod._qseq, id(q), sorted(q._stats.items()),
+                          q._bytes))
+        else:
+            c = mod._cache
+            parts.append((name, id(c), None if c is None else (
+                len(c._entries), sorted(c._c.items()),
+                repr(sorted(c._sess.items())), c.saved_wall_s)))
+    return hashlib.sha256(repr(parts).encode()).hexdigest()
+
+
 @contextlib.contextmanager
 def reference_state():
     from bodo_tpu.config import config
@@ -137,16 +262,22 @@ def reference_state():
           dict(PK.trace_counts))
     mesh = mesh_mod._active_mesh
     records = _process_records()
+    sql_records = _sql_records()
+    _fresh_stats_store(sql_records)
     # attributes: nothing is exported to the environment
     config.progcheck = False
     config.fusion = False
     config.fusion_join = False
     config.mem_governor = False
     config.comm_accounting = False
+    config.result_cache = False
+    config.elastic = False
+    config.plan_validate = False
     port_config.mem_governor = False
     try:
         yield
     finally:
+        _restore_sql_records(sql_records)
         _restore_records(records)
         for k, v in cfg.items():
             setattr(config, k, v)
@@ -296,6 +427,46 @@ def both_configs(**kwargs):
     finally:
         for c, k, v in saved:
             setattr(c, k, v)
+
+
+@contextlib.contextmanager
+def fresh_observations():
+    """Both packages' stage observations start empty for the block: the
+    SQL planners and the join re-optimization order joins by them. The
+    reference's (plan.adaptive._observed) is put back by the `reference`
+    scope; the port's (plan.adaptive._observed and _store) is saved and
+    put back here. The reference's stats store is already fresh in that
+    scope."""
+    from bodo_tpu.plan import adaptive as ref_adaptive
+    from bodo_tpu_torch.plan import adaptive as port_adaptive
+    ref_adaptive._observed.clear()
+    saved = (dict(port_adaptive._observed), dict(port_adaptive._store))
+    port_adaptive.reset()
+    try:
+        yield
+    finally:
+        port_adaptive.reset()
+        port_adaptive._observed.update(saved[0])
+        port_adaptive._store.update(saved[1])
+
+
+def assert_same_frame(got, want, float_rtol: float, label: str = "") -> None:
+    """Two result frames: the same columns and dtypes, integers, strings,
+    dates and nulls equal, floats within `float_rtol` (NaN matching)."""
+    import pandas as pd
+    assert list(got.columns) == list(want.columns), label
+    assert len(got) == len(want), label
+    for c in want.columns:
+        g, w = got[c], want[c]
+        assert g.dtype == w.dtype, f"{label} {c}: {g.dtype} vs {w.dtype}"
+        if w.dtype.kind == "f":
+            np.testing.assert_allclose(g.to_numpy(), w.to_numpy(),
+                                       rtol=float_rtol, atol=0,
+                                       equal_nan=True,
+                                       err_msg=f"{label} {c}")
+        else:
+            pd.testing.assert_series_equal(g, w, check_exact=True,
+                                           obj=f"{label} {c}")
 
 
 def port_routes_reset():
