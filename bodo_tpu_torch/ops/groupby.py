@@ -11,9 +11,13 @@ partial stage of the two-phase sharded groupby), whose f32 sums, counts
 and means over at most 4096 groups take the `groupby_sum` kernel
 (`cuda_kernels.dense_accumulate`); and the sort-based `groupby_local`
 that the JAX package itself takes when the hash route does not resolve.
+The holistic aggregations, which no partial decomposes, are the sort
+groupby's own: nunique (`_nunique`), mode (`_mode`) and the linear
+quantiles "q:<q>" (`_quantile_seg`; median is q:0.5), each a re-sort of
+the groupby's rows by (group, value) followed by integer segment
+reductions.
 
-Still refused with NotImplementedError: the quantiles (`_quantile_seg`),
-`_nunique`, `_mode` and aggregation over decimals.
+Still refused with NotImplementedError: aggregation over decimals.
 """
 
 from __future__ import annotations
@@ -31,14 +35,13 @@ from bodo_tpu_torch.ops.sort import lexsort_perm
 from bodo_tpu_torch.table import dtypes as dt
 
 # ops the JAX package's hash route accepts: everything _segment_agg
-# computes from (segment ids, values) alone
+# computes from (segment ids, values) alone. The holistic nunique, mode
+# and q:<q> and the chan_* combines are the sort groupby's.
 HASH_OPS = frozenset({
     "count", "size", "sum", "sumnull", "sum64", "prod", "min", "max",
     "first", "last", "mean", "var", "std", "var0", "std0",
     "m2", "m3", "m4", "skew", "kurt",
 })
-# the ops the port's _segment_agg computes: all of them
-_PORTED = HASH_OPS
 
 # final op -> partial ops of the two-phase sharded groupby, and partial
 # op -> its combine op (the JAX package's tables). The composite combines
@@ -284,13 +287,7 @@ def _segment_agg(op: str, v, valid, seg, padmask, out_cap: int,
     by the aggregations of one groupby (SortedSegments(seg, out_cap))."""
     if segs is None:
         segs = SortedSegments(seg, out_cap)
-    if op in ("nunique", "mode"):
-        raise NotImplementedError(
-            f"{op} (the sort groupby's _{op}) is not ported yet")
-    if op.startswith("q:"):
-        raise NotImplementedError("the groupby quantile (_quantile_seg) is "
-                                  "not ported yet")
-    if op not in _PORTED:
+    if op not in HASH_OPS:
         raise ValueError(f"unknown agg op: {op}")
     ok = K.value_ok(v, valid, padmask)
     cnt = segment_sum(ok.to(torch.int64), seg, out_cap)
@@ -455,7 +452,17 @@ def groupby_local(arrays, count: int, specs: Tuple[str, ...],
     segs = SortedSegments(seg, out_capacity, presorted=True)
     for i, ((data, valid), op) in enumerate(zip(values, specs)):
         valid_s = None if valid is None else valid[perm]
-        if op.startswith("chan_"):
+        if op == "nunique":
+            out_vals.append(_nunique(data[perm], valid_s, seg, padmask_s,
+                                     out_capacity))
+        elif op == "mode":
+            out_vals.append(_mode(data[perm], valid_s, seg, padmask_s,
+                                  out_capacity))
+        elif op.startswith("q:"):  # quantile / median: "q:<float>"
+            out_vals.append(_quantile_seg(data[perm], valid_s, seg,
+                                          padmask_s, out_capacity,
+                                          float(op[2:])))
+        elif op.startswith("chan_"):
             out_vals.append(_chan_combine(op, values, i, perm, valid_s, seg,
                                           padmask_s, out_capacity, segs))
         else:
@@ -501,6 +508,94 @@ def _chan_combine(op: str, values, i: int, perm, valid_s, seg, padmask_s,
             + n_s * d * d * d * d
     return segment_sum(torch.where(okr, term, 0.0), seg, out_cap,
                        segs), None
+
+
+# ---------------------------------------------------------------------------
+# holistic aggregations: a re-sort by (group, value)
+# ---------------------------------------------------------------------------
+
+def _value_runs(v_s, valid_s, seg, padmask_s):
+    """The groupby's sorted rows re-sorted by (segment, value): (each
+    row's segment, `cap` for a row that is not ok, so it sorts last; the
+    value's encoding; the permutation). The encoding's uint64 order is
+    the value's, so equal values are adjacent; its sign bit is flipped
+    for torch's signed sort, which then orders the codes as the JAX
+    package's uint64 sort does (negative floats, -inf and negative
+    integers before the rest)."""
+    cap = v_s.shape[0]
+    ok = K.value_ok(v_s, valid_s, padmask_s)
+    enc = SE.encode_value(v_s)
+    seg_key = torch.where(ok, seg, cap).to(torch.int64)
+    perm = lexsort_perm([seg_key, enc ^ SE.SIGN64])
+    return seg_key[perm], enc[perm], perm
+
+
+def _new_value(s_seg, s_enc):
+    """Rows that start a run of one (segment, value)."""
+    new = torch.ones_like(s_seg, dtype=torch.bool)
+    new[1:] = (s_seg[1:] != s_seg[:-1]) | (s_enc[1:] != s_enc[:-1])
+    return new
+
+
+def _nunique(v_s, valid_s, seg, padmask_s, out_cap: int):
+    """Distinct values per group: the runs of (group, value) counted.
+    Nulls, NaN and padding do not count. -0.0 and 0.0 are one value, as
+    encode_value makes them (ROADMAP F4: the JAX package's jitted
+    encoding may keep them apart)."""
+    cap = v_s.shape[0]
+    s_seg, s_enc, _ = _value_runs(v_s, valid_s, seg, padmask_s)
+    okrow = s_seg < cap
+    contrib = (_new_value(s_seg, s_enc) & okrow).to(torch.int64)
+    return segment_sum(contrib, s_seg, out_cap), None
+
+
+def _mode(v_s, valid_s, seg, padmask_s, out_cap: int):
+    """Most frequent value per group, the smallest of the most frequent
+    on a tie (the JAX package's deterministic mode): the length of each
+    run of (group, value), the longest per group, then the least
+    encoding among the runs of that length, decoded exactly (no float64
+    round trip). Returns (data, has): `has` is False for a group with no
+    value, whose data is 0."""
+    cap = v_s.shape[0]
+    s_seg, s_enc, _ = _value_runs(v_s, valid_s, seg, padmask_s)
+    okrow = s_seg < cap
+    run_id = torch.cumsum(_new_value(s_seg, s_enc).to(torch.int64), 0) - 1
+    this_len = segment_sum(okrow.to(torch.int64), run_id, cap)[run_id]
+    seg_i = torch.where(okrow, s_seg.clamp(max=out_cap), out_cap)
+    best_len = _segment_reduce(torch.where(okrow, this_len, 0), seg_i,
+                               out_cap, "amax", 0)
+    is_best = okrow & (this_len == best_len[seg_i.clamp(0, out_cap - 1)])
+    # the least uint64 code: its sign bit flipped, the least int64
+    top = torch.iinfo(torch.int64).max
+    best = _segment_reduce(torch.where(is_best, s_enc ^ SE.SIGN64, top),
+                           seg_i, out_cap, "amin", top) ^ SE.SIGN64
+    has = segment_sum(okrow.to(torch.int64), seg_i, out_cap) > 0
+    zero = torch.zeros((), dtype=v_s.dtype, device=v_s.device)
+    return torch.where(has, SE.decode_value(best, v_s.dtype), zero), has
+
+
+def _quantile_seg(v_s, valid_s, seg, padmask_s, out_cap: int, q: float):
+    """Linearly interpolated quantile per group (pandas'
+    interpolation='linear'): the group's values in order, picked at
+    (cnt - 1) * q and interpolated in float64; NaN for a group with no
+    value. Where the position is whole, the value itself."""
+    cap = v_s.shape[0]
+    s_seg, _, perm = _value_runs(v_s, valid_s, seg, padmask_s)
+    s_val = v_s.to(torch.float64)[perm]
+    okrow = s_seg < cap
+    seg_i = s_seg.clamp(max=out_cap)
+    pos = torch.arange(cap, device=v_s.device)
+    start = _segment_reduce(torch.where(okrow, pos, cap), seg_i, out_cap,
+                            "amin", cap)
+    cnt = segment_sum(okrow.to(torch.int64), seg_i, out_cap)
+    qpos = (cnt - 1).to(torch.float64) * q
+    lo = torch.floor(qpos).to(torch.int64)
+    hi = torch.ceil(qpos).to(torch.int64)
+    frac = qpos - lo.to(torch.float64)
+    v_lo = s_val[(start + lo).clamp(0, cap - 1)]
+    v_hi = s_val[(start + hi).clamp(0, cap - 1)]
+    out = v_lo + (v_hi - v_lo) * frac
+    return torch.where(cnt > 0, out, float("nan")), None
 
 
 # ---------------------------------------------------------------------------

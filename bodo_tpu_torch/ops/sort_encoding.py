@@ -38,6 +38,25 @@ def encode_value(data, ascending: bool = True):
     return ~enc if not ascending else enc
 
 
+def decode_value(enc, dtype: torch.dtype):
+    """Inverse of encode_value (ascending form): the uint64 codes held in
+    int64 `enc` back to values of `dtype`, exact for every dtype (the
+    encoding is bijective; -0.0 was encoded as +0.0)."""
+    if dtype.is_floating_point:
+        bits = torch.where(enc < 0, enc ^ SIGN64, ~enc)
+        if dtype == torch.float32:
+            # the float's bits are the code's top 32; the cast keeps them
+            return (bits >> 32).to(torch.int32).view(torch.float32)
+        return bits.view(torch.float64)
+    if dtype == torch.bool:
+        return enc != 0
+    if dtype == torch.uint64:
+        return enc.view(torch.uint64)
+    if dtype in (torch.uint8, torch.uint16, torch.uint32):
+        return enc.to(dtype)
+    return (enc ^ SIGN64).to(dtype)
+
+
 def null_flag(data, valid=None):
     """Boolean null indicator (explicit mask OR float NaN)."""
     null = None

@@ -13,26 +13,29 @@ dense / packed / hashed / sort groupby routes; the local sort;
 (`_join_sharded` after `shuffle_by_key`), each a per-shard join_local,
 with plan/adaptive.py's broadcast decision and skew split; the cross
 join against a replicated side; the two-phase groupby
-(parallel/shuffle.groupby_sharded); the sample sort
+(parallel/shuffle.groupby_sharded) and, for aggregations that do not
+decompose, the colocated groupby (`_groupby_agg_colocated`: one hash
+shuffle, then the sort groupby on each shard); the sample sort
 (ops/sort.sort_sharded). Elementwise stages (projection, the filter's
 predicate) run on the whole global array; compaction and everything
 else runs per shard. The gates are the JAX package's, checked in the
 same order, so both packages take the same route on the same data.
 
 `groupby_agg` takes the decomposable aggregations (ops/groupby.py) on
-every route, and `reduce_table` reduces whole columns to host scalars
-(REP and 1D). The plan executor (plan/physical.py) also calls
-`head_table` (LIMIT), `select_columns`, `window_table` (its `rowid` op)
-and `assign_columns`' host pass for a top-level DictMap (SQL SUBSTRING,
-UPPER: the new dictionary is built on the host, the codes remapped on
-the device).
+every route, the holistic ones (nunique, mode, median and quantile_<q>)
+on the routes the JAX package takes for them (REP: packed, then the
+sort groupby; 1D: colocated), and LISTAGG (`listagg[:<sep>]`,
+`listaggd[:<sep>]`) as native aggregations finished on the host
+(`_groupby_agg_with_listagg`). `reduce_table` reduces whole columns to
+host scalars (REP and 1D; quantiles through `_reduce_quantile`). The
+plan executor (plan/physical.py) also calls `head_table` (LIMIT),
+`select_columns`, `window_table` (its `rowid` op) and `assign_columns`'
+host pass for a top-level DictMap (SQL SUBSTRING, UPPER: the new
+dictionary is built on the host, the codes remapped on the device).
 
 Where the JAX package would go on to a route the port has not ported
 (the window ops but `rowid`; the projections of StrConcat, ToChar,
-StrToList and NestedFn; the colocated groupby of non-decomposable
-aggregations on 1D tables; the groupby's quantiles `_quantile_seg`,
-`_nunique`, `_mode` and `_groupby_agg_with_listagg`; the whole-column
-`_reduce_quantile`; aggregation over decimals) the port raises
+StrToList and NestedFn; aggregation over decimals) the port raises
 NotImplementedError naming it. A join without keys other than the
 cross join raises ValueError, where the JAX package fails inside its
 sort join.
@@ -87,7 +90,7 @@ route_counts: Dict[str, int] = {
     "join_broadcast": 0, "join_shuffle": 0, "groupby_sharded_hash": 0,
     "groupby_sharded_sort": 0, "sort_sharded": 0,
     "join_cross": 0, "join_skew_split": 0, "append_sharded": 0,
-    "concat_tables": 0,
+    "concat_tables": 0, "groupby_colocated": 0,
 }
 
 
@@ -496,31 +499,21 @@ def groupby_agg(t: Table, keys: Sequence[str],
     """Group by `keys`; aggs = [(value_col, op, out_name)]. Output sorted
     by keys ascending (pandas sort=True).
 
-    Routes, in the JAX package's order: dense slots when every key has a
-    small known range (REP); packed keys when they fit 62 bits; the
-    scatter-claim hash groupby (REP); the two-phase sharded groupby (1D);
-    the full sort (REP)."""
+    Routes, in the JAX package's order: LISTAGG's host finish; the
+    colocated groupby (1D, an aggregation that does not decompose); dense
+    slots when every key has a small known range (REP); packed keys when
+    they fit 62 bits; the scatter-claim hash groupby (REP); the two-phase
+    sharded groupby (1D); the full sort (REP)."""
     keys = list(keys)
+    aggs = [(c, _norm_agg(op), o) for c, op, o in aggs]
     if any(op.startswith("listagg") for _, op, _ in aggs):
-        raise NotImplementedError("the listagg groupby "
-                                  "(_groupby_agg_with_listagg) is not "
-                                  "ported yet")
+        return _groupby_agg_with_listagg(t, keys, aggs)
     local = _as_local(t)
     if local is not None:
         return groupby_agg(local, keys, aggs)
     if t.distribution == ONED and any(op not in DECOMPOSE
                                       for _, op, _ in aggs):
-        # the JAX package co-locates whole groups with one hash shuffle
-        raise NotImplementedError(
-            "the colocated groupby of 1D tables (_groupby_agg_colocated, "
-            "for aggregations that do not decompose) is not ported yet")
-    for _, op, _ in aggs:
-        if op == "median" or op.startswith(("quantile_", "q:")):
-            raise NotImplementedError("the groupby quantile (_quantile_seg) "
-                                      "is not ported yet")
-        if op in ("nunique", "mode"):
-            raise NotImplementedError(
-                f"{op} (the sort groupby's _{op}) is not ported yet")
+        return _groupby_agg_colocated(t, keys, aggs)
     dense_ok = (t.distribution == REP and config.dense_groupby_max_slots > 0
                 and not any(op in ("nunique", "mode") or op.startswith("q:")
                             for _, op, _ in aggs))
@@ -568,6 +561,79 @@ def groupby_agg(t: Table, keys: Sequence[str],
                                            t.capacity, len(keys))
     route_counts["groupby_sort"] += 1
     return _groupby_result(t, keys, aggs, out_keys, out_vals, ng)
+
+
+def _norm_agg(op: str) -> str:
+    """An aggregation's alias as the kernel's op: median and
+    quantile_<q> are "q:<q>"."""
+    if op == "median":
+        return "q:0.5"
+    if op.startswith("quantile_"):
+        return f"q:{float(op[len('quantile_'):])}"
+    return op
+
+
+def _groupby_agg_with_listagg(t: Table, keys, aggs) -> Table:
+    """A groupby with LISTAGG ("listagg[:<sep>]", "listaggd[:<sep>]" for
+    DISTINCT; the separator "," by default): the native aggregations run
+    first (a `size` placeholder keeps the groups when there is none),
+    then each group's strings are joined on the host, where the strings
+    live (in their dictionaries), in the rows' order within the group
+    (LISTAGG without WITHIN GROUP), nulls skipped, and aligned to the
+    native result's groups. A 1D table is gathered; the result is REP."""
+    la = [(c, op, o) for c, op, o in aggs if op.startswith("listagg")]
+    rest = [(c, op, o) for c, op, o in aggs if not op.startswith("listagg")]
+    out = groupby_agg(t, keys, rest or [(keys[0], "size", "__la_size")])
+    gout = out.gather() if out.distribution == ONED else out
+    okeys = gout.to_pandas()[list(keys)]
+    src = t.gather() if t.distribution == ONED else t
+    need = list(dict.fromkeys(list(keys) + [c for c, _, _ in la]))
+    pdf = src.select(need).to_pandas()
+    cols: Dict[str, Column] = dict(gout.columns)
+    for c, op, o in la:
+        sep = op.split(":", 1)[1] if ":" in op else ","
+        dedup = op.startswith("listaggd")
+
+        def _cat(v, s=sep, d=dedup):
+            return s.join(str(x) for x in (dict.fromkeys(v) if d else v))
+        ser = pdf.dropna(subset=[c]).groupby(keys, sort=False)[c].agg(_cat)
+        aligned = okeys.merge(ser.rename(o), left_on=keys,
+                              right_index=True, how="left")[o]
+        cols[o] = Column.from_numpy(aligned.to_numpy(dtype=object),
+                                    capacity=gout.capacity,
+                                    device=gout.device)
+    ordered = {o: cols[o] for o in list(keys) + [o for _, _, o in aggs]}
+    return Table(ordered, gout.nrows, REP, None)
+
+
+def _groupby_agg_colocated(t: Table, keys, aggs) -> Table:
+    """The 1D groupby of aggregations that do not decompose (nunique,
+    mode, the quantiles): one hash shuffle by the keys (`shuffle_by_key`,
+    the partition_rank kernel) puts each group's rows on one shard, then
+    each shard runs the sort groupby over its rows, its groups counted a
+    shard. Only the keys and the aggregated columns move, each row once;
+    a key that most rows share puts them on one shard."""
+    route_counts["groupby_colocated"] += 1
+    vals = [c for c, _, _ in aggs]
+    t = shrink_to_fit(shuffle_by_key(
+        t.select(list(dict.fromkeys(list(keys) + vals))), keys))
+    specs = tuple(op for _, op, _ in aggs)
+    arrays = t.arrays(keys) + t.arrays(vals)
+    pk_parts, pv_parts, ngs = [], [], []
+    for i, shard in enumerate(_shard_arrays(arrays, t.num_shards)):
+        pk, pv, ng = groupby_local(shard, int(t.counts[i]), specs,
+                                   t.shard_capacity, len(keys))
+        pk_parts.append(pk)
+        pv_parts.append(pv)
+        ngs.append(ng)
+    counts = np.array(ngs, dtype=np.int64)
+    cols: Dict[str, Column] = {}
+    for kname, (kd, kv) in zip(keys, _concat_pairs(pk_parts)):
+        src = t.column(kname)
+        cols[kname] = Column(kd, kv, src.dtype, src.dictionary, src.vrange)
+    for (cname, op, oname), (vd, vv) in zip(aggs, _concat_pairs(pv_parts)):
+        cols[oname] = _agg_out_col(t.column(cname), op, vd, vv)
+    return shrink_to_fit(Table(cols, int(counts.sum()), ONED, counts))
 
 
 def _groupby_agg_sharded(t: Table, keys, aggs, specs) -> Table:
@@ -789,14 +855,21 @@ def reduce_table(t: Table, aggs: Sequence[Tuple[str, str, str]]) -> Dict:
     like); aggs = [(column, op, out_name)].
 
     Each shard reduces its rows to partials, which combine on the host
-    as the two-phase groupby's do. first, last, skew and kurt have no
-    scalar partial: they run as a groupby on a constant key `__one`.
-    Integer products wrap modulo 2^64, as pandas' do (the JAX package
-    takes them in f64)."""
-    if any(op == "median" or op.startswith("quantile_")
-           for _, op, _ in aggs):
-        raise NotImplementedError("the whole-column quantile "
-                                  "(_reduce_quantile) is not ported yet")
+    as the two-phase groupby's do. median and quantile_<q> take a sort
+    (`_reduce_quantile`). first, last, skew, kurt, nunique, mode and
+    LISTAGG have no scalar partial: they run as a groupby on a constant
+    key `__one` (on a 1D table the colocated groupby for the holistic
+    ones, which sends every row to one shard). Integer products wrap
+    modulo 2^64, as pandas' do (the JAX package takes them in f64)."""
+    qaggs = [a for a in aggs if _norm_agg(a[1]).startswith("q:")]
+    if qaggs:
+        for c, op, _ in qaggs:
+            agg_dtype(op, t.column(c).dtype)  # refuses decimals
+        rest = [a for a in aggs if a not in qaggs]
+        out = reduce_table(t, rest) if rest else {}
+        for c, op, o in qaggs:
+            out[o] = _reduce_quantile(t, c, float(_norm_agg(op)[2:]))
+        return out
     gaggs = [(c, op, o) for c, op, o in aggs if op not in _REDUCE_PARTIALS]
     if gaggs:
         rest = [(c, op, o) for c, op, o in aggs if op in _REDUCE_PARTIALS]
@@ -848,6 +921,32 @@ def reduce_table(t: Table, aggs: Sequence[Tuple[str, str, str]]) -> Dict:
                 v = np.nan
         out[oname] = _reduce_scalar(v, op, c.dtype)
     return out
+
+
+def _reduce_quantile(t: Table, col: str, q: float) -> float:
+    """Linearly interpolated quantile of a whole column (pandas'
+    interpolation='linear'). A 1D table's column is gathered. The values
+    are sorted with the rows that are not ok (nulls, NaN, padding) last,
+    as +inf: the first `n` sorted are the n ok values in order whatever
+    they hold. Only the one or two values at (n - 1) * q come back to the
+    host, which interpolates. A decimal column never reaches it:
+    reduce_table refuses it first (agg_dtype)."""
+    src = t.select([col])
+    if src.distribution == ONED:
+        src = src.gather()
+    c = src.column(col)
+    ok = K.value_ok(c.data, c.valid, K.row_mask(src.nrows, c.capacity,
+                                                src.device))
+    n = int(ok.sum())
+    if n == 0:
+        return float("nan")
+    s_val = torch.sort(torch.where(ok, c.data.to(torch.float64),
+                                   float("inf"))).values
+    qpos = (n - 1) * q
+    lo, hi = int(np.floor(qpos)), int(np.ceil(qpos))
+    vals = s_val[lo:hi + 1].cpu().numpy()
+    return float(vals[0]) if lo == hi else \
+        float(vals[0] + (vals[1] - vals[0]) * (qpos - lo))
 
 
 def _reduce_scalar(v, op: str, src: dt.DType):

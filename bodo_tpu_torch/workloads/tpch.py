@@ -152,10 +152,10 @@ def gen_tpch(n_orders: int = 1500, seed: int = 0):
 
 
 # Queries the port cannot run yet, with the route that stops each (it
-# raises NotImplementedError naming that route). Q21's non-equality
-# correlated EXISTS runs through the row-id decorrelation (the rowid
-# window op).
-UNSUPPORTED = {16: "_nunique"}
+# raises NotImplementedError naming that route): none. Q16's COUNT(DISTINCT)
+# runs through the sort groupby's nunique; Q21's non-equality correlated
+# EXISTS through the row-id decorrelation (the rowid window op).
+UNSUPPORTED: dict = {}
 
 # The 22 standard TPC-H queries (spec text, standard parameters).
 QUERIES = {

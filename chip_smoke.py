@@ -113,6 +113,20 @@ per source, all started together), then:
        1e-7 * (1 + |x|)); then the warm stage time of groupby_agg for
        this spec and for the pipeline's count/mean spec, and of
        reduce_table, each the median of 5 runs;
+     - the holistic aggregations on the same joined table at 20,000,000
+       rows (workloads/taxi_aggs.py HOLISTIC_AGGS), REP (the six keys
+       packed, then the sort groupby) and then 1D on 4 shards (the
+       colocated groupby: one hash shuffle, partition_rank once a
+       shard, then the sort groupby a shard): nunique of PULocationID
+       and of the string hvfhs_license_num, mode of PULocationID and of
+       trip_miles, the median and the 0.1 and 0.9 quantiles of
+       trip_miles, grouped by the six keys and then sorted by them, and
+       the same with the 0.99 quantile over the whole table through
+       reduce_table (on 1D every row goes to one shard), each against
+       numpy and pandas on the host (keys, nunique and mode exact,
+       quantiles within rtol 1e-14), with each stage's synchronized
+       time, peak memory, routes and launches, and the warm times of
+       groupby_agg and reduce_table (median of 5);
      - the rest of the 1D join family (workloads/join_family.py), each
        against its numpy oracle, with its wall and warm time (median of
        5), peak memory, routes and launches: the union of the taxi
@@ -149,10 +163,15 @@ per source, all started together), then:
      a process of its own while the frames are generated and
      registered: row counts, integers, strings, dates and the ORDER BY
      row order exact, float64 sums and means unrounded within rtol
-     1e-9); Q16 (COUNT(DISTINCT), the
-     groupby's _nunique) must raise NotImplementedError naming it; at
-     least 20 queries must match, and lut_gather or hash_probe must
-     launch in the phase.
+     1e-9); all 22 must match, Q16's COUNT(DISTINCT) through the sort
+     groupby's nunique among them, and lut_gather or hash_probe must
+     launch in the phase; then two queries of the holistic aggregations
+     over the same frames, cold and warm, against pandas (sqlite has no
+     median, mode or ordered LISTAGG): COUNT(DISTINCT l_suppkey),
+     MEDIAN(l_extendedprice) and MODE(l_quantity) of lineitem by
+     l_returnflag and l_linestatus, and LISTAGG(s_name, '|') with
+     LISTAGG(DISTINCT s_nationkey) of supplier by s_nationkey (counts,
+     modes and strings exact, medians within rtol 1e-14).
 
 Any failure raises and exits non-zero. Without a CUDA device it exits
 non-zero before printing any result. The last line is one JSON object
@@ -193,6 +212,7 @@ SUM_TOL_TEXT = "1e-5 * sum(|x|) per slot"
 # another order and by another algorithm (pandas' Welford)
 AGG_RTOL = 1e-9            # sumnull, var, std, var0, std0: relative
 MOMENT_TOL = 1e-7          # skew, kurt: |delta| <= MOMENT_TOL * (1 + |x|)
+HOLISTIC_RTOL = 1e-14      # medians and quantiles against pandas / numpy
 STAGE_REPS = 5             # warm stage times: the median of 5 runs
 # TPC-H at scale factor 1 (workloads/tpch.gen_tpch): 1.5M orders
 TPCH_ORDERS = 1_500_000
@@ -2042,6 +2062,91 @@ def run_aggregations(trips, weather):
         del m, out, src
 
 
+def run_holistic(trips, weather):
+    """The holistic aggregations on the taxi pipeline's joined table
+    (workloads/taxi_aggs.py HOLISTIC_AGGS, HOLISTIC_REDUCE) at the REP
+    phase's size, REP and then 1D on SHARDS shards: the join, the groupby
+    by the six keys (then sorted by them) and reduce_table, each driven
+    once with the route and launch counts set to 0 just before and read
+    just after, its synchronized time and peak memory printed, and held
+    to the numpy/pandas oracle (nunique and mode exact, the median and
+    quantiles within HOLISTIC_RTOL); then the colocated groupby_agg alone
+    on 1D, whose hash shuffle must launch partition_rank once a shard;
+    then the warm times (median of STAGE_REPS) of groupby_agg and
+    reduce_table. Returns the colocated groupby's launches."""
+    import contextlib
+
+    from bodo_tpu_torch import relational as R
+    from bodo_tpu_torch.parallel.mesh import make_mesh, use_mesh
+    from bodo_tpu_torch.workloads import taxi as T
+    from bodo_tpu_torch.workloads import taxi_aggs as A
+
+    t0 = time.perf_counter()
+    want, want_red = A.holistic_oracle(*T.gen_taxi_arrays(MAIN_ROWS,
+                                                          seed=SEED))
+    print(f"holistic: numpy/pandas oracle {time.perf_counter() - t0:.3f}s,"
+          f" {len(want[T.KEYS[0]])} groups")
+    colocated = None
+    for label, shard in (("holistic REP", False), ("holistic 1D", True)):
+        mesh = use_mesh(make_mesh(SHARDS, trips.device)) if shard \
+            else contextlib.nullcontext()
+        with mesh:
+            src = trips.shard() if shard else trips
+            m, join_s, _, _, _ = _drive(lambda: T.joined(src, weather))
+            out, gb_s, gb_routes, gb_launches, gb_peak = _drive(
+                lambda: A.groupby(m, A.HOLISTIC_AGGS))
+            red, red_s, red_routes, red_launches, red_peak = _drive(
+                lambda: A.reduce(m, A.HOLISTIC_REDUCE))
+            A.check_groupby(A.table_arrays(out), want, HOLISTIC_RTOL, 0.0,
+                            label, A.HOLISTIC_AGGS)
+            A.check_reduce(red, want_red, HOLISTIC_RTOL, 0.0, label,
+                           A.HOLISTIC_REDUCE)
+            print(f"{label}: rows={m.nrows} groups={out.nrows} join_s="
+                  f"{join_s:.4f} groupby_sort_s={gb_s:.4f} "
+                  f"groupby_max_memory_allocated={gb_peak} reduce_s="
+                  f"{red_s:.4f} reduce_max_memory_allocated={red_peak} "
+                  f"(first runs, synchronized)")
+            print(f"{label}: groupby+sort route_counts={gb_routes} "
+                  f"kernel_launches={gb_launches}")
+            print(f"{label}: reduce_table route_counts={red_routes} "
+                  f"kernel_launches={red_launches}")
+            # REP: the six keys packed, then the sort groupby; the reduce's
+            # one constant key: the sort groupby; 1D: colocated
+            for routes, what, want_routes in (
+                    (gb_routes, "groupby", ("groupby_packed", "groupby_sort")),
+                    (red_routes, "reduce_table", ("groupby_sort",))):
+                if shard:
+                    want_routes = ("groupby_colocated",)
+                missing = [r for r in want_routes if routes.get(r, 0) < 1]
+                if missing:
+                    raise AssertionError(f"{label} {what}: routes "
+                                         f"{missing} not taken")
+            no_f32_accumulate(gb_launches, label)
+            no_f32_accumulate(red_launches, label)
+            if shard:
+                _, coloc_s, coloc_routes, colocated, coloc_peak = _drive(
+                    lambda: R.groupby_agg(m, T.KEYS, A.HOLISTIC_AGGS))
+                print(f"{label}: groupby_agg alone: s={coloc_s:.4f} "
+                      f"max_memory_allocated={coloc_peak} route_counts="
+                      f"{coloc_routes} kernel_launches={colocated}")
+                if coloc_routes != {"groupby_colocated": 1} or \
+                        colocated["partition_rank"] != SHARDS:
+                    raise AssertionError(
+                        f"{label}: the colocated groupby took "
+                        f"{coloc_routes} with {colocated['partition_rank']}"
+                        f" partition_rank launches, want {SHARDS}")
+            gb_ms = _warm_s(lambda: R.groupby_agg(m, T.KEYS,
+                                                  A.HOLISTIC_AGGS)) * 1e3
+            red_ms = _warm_s(lambda: A.reduce(m, A.HOLISTIC_REDUCE)) * 1e3
+        print(f"{label}: warm ms (median of {STAGE_REPS}): groupby_agg "
+              f"{gb_ms:.3f}, reduce_table {red_ms:.3f}")
+        print(f"{label}: groupby and reduce_table match the oracle "
+              f"(keys, nunique and mode exact; median and quantiles "
+              f"rtol={HOLISTIC_RTOL})")
+        del m, out, src
+    return colocated
+
+
 class _PortConfig:
     """Set fields of the port's config for a block, then put them back."""
 
@@ -2334,10 +2439,13 @@ def run_tpch(tmp: str, procs: list):
     set to 0 just before the cold run and read just after, and held
     against sqlite on the same data (tpch.check_against_sqlite: row
     counts, integers, strings, dates and the ORDER BY row order exact,
-    float64 within TPCH_RTOL). Q16 (tpch.UNSUPPORTED) must raise
-    NotImplementedError naming _nunique. The oracle's process is started
-    first and appended to `procs`. Returns the launches of the phase by
-    kernel."""
+    float64 within TPCH_RTOL); all 22 must match (tpch.UNSUPPORTED is
+    empty). Then HOLISTIC_SQL, the holistic aggregations through SQL
+    (COUNT(DISTINCT), MEDIAN, MODE, LISTAGG), cold and warm, against
+    pandas on the same frames (sqlite has no median, mode or ordered
+    LISTAGG). The oracle's process is started first and appended to
+    `procs`. Returns (the launches of the phase by kernel, Q16's
+    launches)."""
     import pickle
 
     import torch
@@ -2356,6 +2464,7 @@ def run_tpch(tmp: str, procs: list):
     ctx = BodoSQLContext(data, device="cuda")
     torch.cuda.synchronize()
     register_s = time.perf_counter() - t0
+    holistic_want = holistic_sql_oracle(data)
     del data
     dev_bytes = torch.cuda.memory_allocated()
     print(f"tpch SF1: rows={rows} gen_s={gen_s:.3f} "
@@ -2377,19 +2486,10 @@ def run_tpch(tmp: str, procs: list):
               {q: round(v, 3) for q, v in sorted(ref["query_s"].items())}))
 
     total = {k: 0 for k in CK.launches}
+    by_query = {}
     ran = 0
     for q in sorted(TP.QUERIES):
         sql = TP.QUERIES[q]
-        if q in TP.UNSUPPORTED:
-            try:
-                ctx.sql(sql).to_pandas()
-            except NotImplementedError as e:
-                if TP.UNSUPPORTED[q] not in str(e):
-                    raise
-                print(f"tpch Q{q}: raises NotImplementedError: {e}")
-                continue
-            raise AssertionError(f"tpch Q{q} ran; expected it to raise "
-                                 f"naming {TP.UNSUPPORTED[q]}")
         got, cold_s, routes, launches, peak = _drive(
             lambda: ctx.sql(sql).to_pandas())
         torch.cuda.synchronize()
@@ -2401,20 +2501,90 @@ def run_tpch(tmp: str, procs: list):
                                 f"tpch Q{q}")
         for k, v in launches.items():
             total[k] += v
+        by_query[q] = launches
         ran += 1
         print(f"tpch Q{q}: rows={len(got)} cold_s={cold_s:.4f} "
               f"warm_s={warm_s:.4f} max_memory_allocated={peak} "
               f"routes={routes} kernel_launches="
               f"{ {k: v for k, v in launches.items() if v} } "
               f"matches sqlite")
-    if ran < 20:
+    if ran != len(TP.QUERIES):
         raise AssertionError(f"tpch: only {ran} queries ran")
     if total["lut_gather"] + total["hash_probe"] < 1:
         raise AssertionError("tpch: no lut_gather or hash_probe launch")
     print(f"tpch SF1: {ran} of {len(TP.QUERIES)} queries match sqlite "
           f"(floats unrounded, rtol={TPCH_RTOL}); kernel launches over "
           f"the phase {total}")
-    return total
+    for name, (keys, sql) in HOLISTIC_SQL.items():
+        got, cold_s, routes, launches, peak = _drive(
+            lambda: ctx.sql(sql).to_pandas())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ctx.sql(sql).to_pandas()
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        check_holistic_sql(got, holistic_want[name], keys, f"tpch {name}")
+        print(f"tpch {name}: rows={len(got)} cold_s={cold_s:.4f} "
+              f"warm_s={warm_s:.4f} max_memory_allocated={peak} "
+              f"routes={routes} kernel_launches="
+              f"{ {k: v for k, v in launches.items() if v} } matches "
+              f"pandas (counts, modes and strings exact, medians "
+              f"rtol={HOLISTIC_RTOL})")
+    return total, by_query[16]
+
+
+# the holistic aggregations through SQL over the TPC-H SF1 frames, held
+# to pandas on the same frames: name -> (the GROUP BY keys, the query)
+HOLISTIC_SQL = {
+    "lineitem holistic": (["l_returnflag", "l_linestatus"], (
+        "SELECT l_returnflag, l_linestatus, COUNT(DISTINCT l_suppkey) AS "
+        "n_supp, MEDIAN(l_extendedprice) AS med_price, MODE(l_quantity) "
+        "AS mode_qty FROM lineitem GROUP BY l_returnflag, l_linestatus")),
+    "supplier listagg": (["s_nationkey"], (
+        "SELECT s_nationkey, LISTAGG(s_name, '|') AS names, "
+        "LISTAGG(DISTINCT s_nationkey) AS nation FROM supplier "
+        "GROUP BY s_nationkey")),
+}
+
+
+def holistic_sql_oracle(data):
+    """HOLISTIC_SQL's results by pandas on the frames `data` (a group's
+    mode: the smallest of its most frequent values; LISTAGG: the
+    group's values in the frame's row order), sorted by the keys."""
+    g = data["lineitem"].groupby(HOLISTIC_SQL["lineitem holistic"][0],
+                                 sort=True)
+    lineitem = g.agg(n_supp=("l_suppkey", "nunique"),
+                     med_price=("l_extendedprice", "median"),
+                     mode_qty=("l_quantity",
+                               lambda s: min(s.mode()))).reset_index()
+    gs = data["supplier"].groupby(HOLISTIC_SQL["supplier listagg"][0],
+                                  sort=True)
+    supplier = gs.agg(names=("s_name", "|".join),
+                      nation=("s_nationkey",
+                              lambda s: ",".join(dict.fromkeys(
+                                  str(x) for x in s)))).reset_index()
+    return {"lineitem holistic": lineitem, "supplier listagg": supplier}
+
+
+def check_holistic_sql(got, want, keys, label: str) -> None:
+    """A HOLISTIC_SQL result against holistic_sql_oracle's, its rows
+    sorted by the `keys`: the same rows and columns; integers, modes and
+    strings equal; medians within HOLISTIC_RTOL."""
+    import numpy as np
+    got = got.sort_values(keys).reset_index(drop=True)
+    if list(got.columns) != list(want.columns) or len(got) != len(want):
+        raise AssertionError(f"{label}: {list(got.columns)} x {len(got)} "
+                             f"rows, want {list(want.columns)} x "
+                             f"{len(want)}")
+    for c in want.columns:
+        g, w = got[c].to_numpy(), want[c].to_numpy()
+        if c == "med_price":
+            np.testing.assert_allclose(g.astype(np.float64),
+                                       w.astype(np.float64),
+                                       rtol=HOLISTIC_RTOL, atol=0,
+                                       err_msg=f"{label} {c}")
+        elif not np.array_equal(g.astype(object), w.astype(object)):
+            raise AssertionError(f"{label} {c}: {g[:5]!r} vs {w[:5]!r}")
 
 
 def range_launches_per_pass(launches, calls, label: str) -> None:
@@ -2500,10 +2670,12 @@ def _main(CK, dev, tmp: str, procs: list) -> int:
     oned_launches, rank_calls, range_calls, oned_probes = \
         run_taxi_1d(*taxi_run)
     run_aggregations(*taxi_run[:2])
+    colocated = run_holistic(*taxi_run[:2])
     run_union(*taxi_run)
     del taxi_run
     rank = time_partition_rank(rank_calls)
     rank["launches"] = oned_launches["partition_rank"]
+    rank["colocated_launches"] = colocated["partition_rank"]
     part = time_range_partition(range_calls, dev)
     part["launches"] = oned_launches["range_partition"]
     probe["taxi_1d_launches"] = oned_launches["hash_probe"]
@@ -2533,9 +2705,11 @@ def _main(CK, dev, tmp: str, procs: list) -> int:
                                  f"main path")
     run_join_matrix()
     run_taxi(SMALL_ROWS, ("join_dense", "groupby_hashed"), "small")
-    tpch = run_tpch(tmp, procs)
+    tpch, q16 = run_tpch(tmp, procs)
     lut["tpch_launches"] = tpch["lut_gather"]
     probe["tpch_launches"] = tpch["hash_probe"]
+    lut["tpch_q16_launches"] = q16["lut_gather"]
+    probe["tpch_q16_launches"] = q16["hash_probe"]
 
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

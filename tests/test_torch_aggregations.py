@@ -14,7 +14,9 @@ every groupby route, and `reduce_table`, on REP and 1D tables.
      and an empty table;
   2. reduce_table on REP and 1D tables with the same columns, an
      all-null column and an empty table;
-  3. the refusals that stay, each NotImplementedError naming its route;
+  3. the refusals that stay: aggregation over decimals (the holistic
+     aggregations and LISTAGG, refused before, are held in
+     test_torch_holistic_aggs.py and test_torch_listagg.py);
   4. the f32 gate: `min` beside `sum` over f32 never reaches
      `dense_accumulate` or `groupby_sum`, on the dense and hashed routes;
   5. the slice: workloads/taxi_aggs on the taxi pipeline's joined table
@@ -67,8 +69,8 @@ SPECS = {
     "bo": ("sumnull", "prod", "min", "max", "first", "last"),
 }
 AGGS = [(c, op, f"{c}_{op}") for c, ops in SPECS.items() for op in ops]
-# the partial-only ops have no DECOMPOSE entry: on a 1D table the
-# reference sends them to its colocated groupby, which the port refuses
+# the partial-only ops have no DECOMPOSE entry: on a 1D table both
+# packages send them to the colocated groupby, not the two-phase one
 AGGS_1D = [a for a in AGGS if a[1] not in ("sum64", "m2", "m3", "m4")]
 REDUCE_OPS = ("sum", "sumnull", "count", "size", "min", "max", "mean",
               "var", "std", "var0", "std0", "prod", "first", "last", "skew",
@@ -259,21 +261,9 @@ def _check_reduce(ref_t, label: str):
     return got
 
 
-def _check_refusals(rep, oned):
+def _check_refusals():
     from bodo_tpu_torch import relational as PR
     from bodo_tpu_torch.table.table import Column, Table
-    for op, route in (("median", "_quantile_seg"),
-                      ("quantile_0.25", "_quantile_seg"),
-                      ("nunique", "_nunique"), ("mode", "_mode"),
-                      ("listagg", "_groupby_agg_with_listagg")):
-        with pytest.raises(NotImplementedError, match=route):
-            PR.groupby_agg(rep, ["a"], [("f64", op, "x")])
-    with pytest.raises(NotImplementedError, match="_groupby_agg_colocated"):
-        PR.groupby_agg(oned, ["a"], [("f64", "median", "x")])
-    with pytest.raises(NotImplementedError, match="_reduce_quantile"):
-        PR.reduce_table(rep, [("f64", "median", "x")])
-    with pytest.raises(NotImplementedError, match="_nunique"):
-        PR.reduce_table(rep, [("f64", "nunique", "x")])
     dec = Table({"a": Column.from_numpy(np.array([1, 1, 2]), device="cpu"),
                  "d": Column.from_numpy(np.array(
                      [decimal.Decimal("1.25"), decimal.Decimal("2.50"),
@@ -283,6 +273,11 @@ def _check_refusals(rep, oned):
         PR.groupby_agg(dec, ["a"], [("d", "min", "x")])
     with pytest.raises(NotImplementedError, match="decimals"):
         PR.reduce_table(dec, [("d", "max", "x")])
+    for op in ("median", "quantile_0.25", "mode"):
+        with pytest.raises(NotImplementedError, match="decimals"):
+            PR.groupby_agg(dec, ["a"], [("d", op, "x")])
+        with pytest.raises(NotImplementedError, match="decimals"):
+            PR.reduce_table(dec, [("d", op, "x")])
 
 
 def _check_f32_gate(reference_table_of):
@@ -362,7 +357,6 @@ def test_aggregations_match_reference(reference):
     with bodo_tpu.use_mesh(ref_mesh), \
             use_mesh(make_mesh(SHARDS, device="cpu")):
         _check_reduce(table_of(red).shard(), "reduce 1D")
-        oned = to_port(table_of(red).shard())
     # the port's integer product wraps modulo 2^64, as numpy's and pandas'
     from bodo_tpu_torch import relational as PR
     from bodo_tpu_torch.table.table import Table
@@ -372,7 +366,7 @@ def test_aggregations_match_reference(reference):
     assert wrap == int(np.prod(big)), (wrap, int(np.prod(big)))
 
     # 3. the refusals that stay; 4. the f32 gate
-    _check_refusals(to_port(table_of(red)), oned)
+    _check_refusals()
     _check_f32_gate(table_of)
     # 5. the slice
     _check_taxi_slice()

@@ -7,7 +7,8 @@ the same query through a context on the CPU (the same routes; integers,
 strings, dates and nulls equal, floats within rtol 1e-12: the groupby's
 float sums reduce each segment in row order on both devices, so only
 whole-column reductions such as reduce_table's add in another order on
-the card). Q16 raises NotImplementedError naming _nunique. The dense-LUT
+the card). All 22 run (workloads/tpch.UNSUPPORTED is empty; Q16's
+COUNT(DISTINCT) through the sort groupby's nunique, exact). The dense-LUT
 join's lut_gather and the hash join's hash_probe launch on the card.
 
 Marked `cuda`: skips without a GPU. It imports nothing of the test

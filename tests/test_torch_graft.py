@@ -15,14 +15,13 @@ swaps to the build side and broadcasts.
 
 Last, on 4 shards, the 1D routes that came after the graft step, each
 where the reference takes it, held to the reference (tables and routes):
-the skew-split join (a hot probe key), the cross join and concat_tables;
-and the colocated groupby (an aggregation that does not decompose),
-which the port still refuses. One test runs every check (see
+the skew-split join (a hot probe key), the colocated groupby (nunique,
+an aggregation that does not decompose), the cross join and
+concat_tables. One test runs every check (see
 tests/torch_parity.py on why each test_torch_* file holds one test)."""
 
 import numpy as np
 import pandas as pd
-import pytest
 
 from tests.torch_parity import (assert_same_table, both_configs,
                                 port_routes_reset, reference,
@@ -126,10 +125,8 @@ def _check_later_routes(s, ref_mesh, port_mesh):
         same(lambda M, f=lambda t: t: M.join_tables(
             f(tl), f(tr), ["k"], ["k"], "inner"), "join_skew_split")
         assert ref_aqe._counters["skew:split_join"] == before + 1
-        R.groupby_agg(tl, ["k"], [("v", "nunique", "u")])
-        with pytest.raises(NotImplementedError,
-                           match="_groupby_agg_colocated"):
-            PR.groupby_agg(to_port(tl), ["k"], [("v", "nunique", "u")])
+        same(lambda M, f=lambda t: t: M.groupby_agg(
+            f(tl), ["k"], [("v", "nunique", "u")]), "groupby_colocated")
         same(lambda M, f=lambda t: t: M.join_tables(
             f(tl), f(tr), [], [], "cross"), "join_cross")
         same(lambda M, f=lambda t: t: M.concat_tables([f(tl), f(tl)]),

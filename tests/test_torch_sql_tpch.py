@@ -8,11 +8,12 @@ and through the stdlib sqlite3. The port's result equals the
 reference's (columns, dtypes, integers, strings, dates and nulls
 exactly, float64 within rtol 1e-12: the same sums in another order),
 with the same routes, and sqlite's after the normalization of
-tests/test_tpch.py (floats within rtol 1e-9). The queries of
-workloads/tpch.UNSUPPORTED (Q16: COUNT(DISTINCT), the groupby's
-_nunique) raise NotImplementedError naming their route; they run last,
-so the stage observations that order the joins of every other query
-are the same in both packages.
+tests/test_tpch.py (floats within rtol 1e-9). All 22 run:
+workloads/tpch.UNSUPPORTED, the queries that would raise
+NotImplementedError naming their route (and run last, so the stage
+observations that order the joins of every other query are the same in
+both packages), is empty; Q16's COUNT(DISTINCT) takes the packed route
+and the sort groupby's nunique in both packages.
 
 The reference's SQL path records its stages in process state (its
 stats store, plan cache counters, explain records, elastic registry and

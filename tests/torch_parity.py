@@ -327,13 +327,17 @@ def reference_routes():
     join_local call (hash, or sort after a hash run that did not
     resolve). `_join_sharded` counts as join_shuffle when it is not the
     broadcast join's, and `groupby_sharded` as groupby_sharded_<method>,
-    the method of its last partial stage."""
+    the method of its last partial stage. `_groupby_agg_colocated` counts
+    as groupby_colocated and not as groupby_sort: its per-shard
+    groupby_local runs inside a jitted shard_map body, where the spy sees
+    it only when the program is traced."""
     import importlib
     import bodo_tpu.parallel.shuffle as ref_shuffle
     import bodo_tpu.relational as ref_rel
     counts = {name: 0 for name in _REF_ROUTES}
     counts.update(join_rep_hash=0, join_rep_sort=0, join_shuffle=0,
-                  groupby_sharded_hash=0, groupby_sharded_sort=0)
+                  groupby_sharded_hash=0, groupby_sharded_sort=0,
+                  groupby_colocated=0)
     saved = []
     last_method = ["sort"]
     partial_method = ["sort"]
@@ -362,8 +366,16 @@ def reference_routes():
         counts[f"groupby_sharded_{partial_method[0]}"] += 1
         return out
 
+    def colocated_spy(*a, _orig=ref_rel._groupby_agg_colocated, **k):
+        before = counts["groupby_sort"]
+        out = _orig(*a, **k)
+        counts["groupby_sort"] = before
+        counts["groupby_colocated"] += 1
+        return out
+
     for mod, fname, spy in (
             (ref_rel, "join_local", join_local_spy),
+            (ref_rel, "_groupby_agg_colocated", colocated_spy),
             (ref_rel, "_join_rep", join_rep_spy),
             (ref_rel, "_join_sharded", join_sharded_spy),
             (ref_shuffle, "_build_groupby_partial", partial_spy),
