@@ -66,10 +66,12 @@ def bucket_rows(dest, arrays: Sequence, count: int, num_shards: int,
         if a is None:
             packed.append(None)
             continue
-        z = torch.zeros((total + 1,) + tuple(a.shape[1:]), dtype=a.dtype,
+        # torch has no uint64 index_put: its bits move as int64
+        bits = a.view(torch.int64) if a.dtype == torch.uint64 else a
+        z = torch.zeros((total + 1,) + tuple(a.shape[1:]), dtype=bits.dtype,
                         device=dev)
-        z[scatter_idx] = a  # rows that do not fit land in the dropped slot
-        packed.append(z[:total])
+        z[scatter_idx] = bits  # rows that do not fit: the dropped slot
+        packed.append(z[:total].view(a.dtype))
     send_counts = counts.to(torch.int64).clamp(max=bucket_cap)
     return packed, send_counts, overflow
 

@@ -18,9 +18,10 @@ the memory governor's admission control and the resilience layer, which
 the port has not. One route is the port's own: a filter over the SQL
 planner's cross join whose predicate requires a left and a right
 column equal in every disjunct joins on them when the product has
-more than PRODUCT_MAX_ROWS rows (`_filtered_product`). Window (but its
-rowid op), RankWindow, AggWindow, NonEquiJoin, Explode and ViewScan
-raise NotImplementedError naming the route they need.
+more than PRODUCT_MAX_ROWS rows (`_filtered_product`). Window,
+RankWindow and AggWindow run through relational.window_table,
+rank_window and agg_window (SQL OVER clauses). NonEquiJoin, Explode and
+ViewScan raise NotImplementedError naming the route they need.
 """
 
 from __future__ import annotations
@@ -211,9 +212,11 @@ def _exec_inner(node: L.Node) -> Table:
     if isinstance(node, L.Window):
         return R.window_table(_exec(node.child), node.specs)
     if isinstance(node, L.RankWindow):
-        _unported("RankWindow (relational.rank_window, ops/window.py)")
+        return R.rank_window(_exec(node.child), node.partition_by,
+                             node.order_by, node.specs, node.ascending)
     if isinstance(node, L.AggWindow):
-        _unported("AggWindow (relational.agg_window, ops/window.py)")
+        return R.agg_window(_exec(node.child), node.partition_by,
+                            node.order_by, node.specs, node.ascending)
     if isinstance(node, L.Sort):
         return R.sort_table(_exec(node.child), node.by, node.ascending,
                             node.na_last)

@@ -28,17 +28,19 @@ sort groupby; 1D: colocated), and LISTAGG (`listagg[:<sep>]`,
 `listaggd[:<sep>]`) as native aggregations finished on the host
 (`_groupby_agg_with_listagg`). `reduce_table` reduces whole columns to
 host scalars (REP and 1D; quantiles through `_reduce_quantile`). The
-plan executor (plan/physical.py) also calls `head_table` (LIMIT),
-`select_columns`, `window_table` (its `rowid` op) and `assign_columns`'
-host pass for a top-level DictMap (SQL SUBSTRING, UPPER: the new
-dictionary is built on the host, the codes remapped on the device).
+windows (ops/window.py) are `window_table` (cumulative, rolling, shift,
+diff and rowid), `rank_window` and `agg_window` (SQL OVER), REP and 1D.
+The plan executor (plan/physical.py) also calls `head_table` (LIMIT),
+`select_columns` and `assign_columns`' host pass for a top-level
+DictMap (SQL SUBSTRING, UPPER: the new dictionary is built on the
+host, the codes remapped on the device).
 
 Where the JAX package would go on to a route the port has not ported
-(the window ops but `rowid`; the projections of StrConcat, ToChar,
-StrToList and NestedFn; aggregation over decimals) the port raises
-NotImplementedError naming it. A join without keys other than the
-cross join raises ValueError, where the JAX package fails inside its
-sort join.
+(the projections of StrConcat, ToChar, StrToList and NestedFn;
+aggregation over decimals, in the groupby, `reduce_table` and the
+aggregate windows) the port raises NotImplementedError naming it. A
+join without keys other than the cross join raises ValueError, where
+the JAX package fails inside its sort join.
 
 `route_counts` counts the routes taken, so tests and the chip smoke can
 show which one ran.
@@ -91,6 +93,10 @@ route_counts: Dict[str, int] = {
     "groupby_sharded_sort": 0, "sort_sharded": 0,
     "join_cross": 0, "join_skew_split": 0, "append_sharded": 0,
     "concat_tables": 0, "groupby_colocated": 0,
+    "rank_window_local": 0, "rank_window_shuffle": 0,
+    "rank_window_global": 0, "agg_window_local": 0,
+    "agg_window_shuffle": 0, "agg_window_broadcast": 0,
+    "agg_window_gather": 0,
 }
 
 
@@ -261,27 +267,395 @@ def head_table(t: Table, n: int) -> Table:
 def window_table(t: Table, specs: Sequence[Tuple[str, str, Optional[int],
                                                  str]]) -> Table:
     """Row-aligned window transforms: specs = [(col, op, param, outname)].
-    The port has the `rowid` op, the global row position (shard i's rows
-    after the rows of shards 0..i-1, -1 on padding), which the SQL
-    planner's EXISTS decorrelation tags rows with. The cumulative,
-    rolling, shift and diff ops raise NotImplementedError."""
+    ops: cumsum/cumprod/cummax/cummin, rolling_{sum,mean,min,max,count}
+    (param = window), shift/diff (param = periods), and rowid, the global
+    row position (shard i's rows after the rows of shards 0..i-1, -1 on
+    padding), which the SQL planner's EXISTS decorrelation and the 1D
+    windows tag rows with.
+
+    A 1D table runs shard by shard: each shard's cumulative carry is
+    the exclusive scan of the shards before it (W.cum_carry_exscan), and
+    each rolling or shift halo the last rows of as many predecessor
+    shards as the window needs (W.multi_hop_halo), short and empty
+    shards included."""
+    from bodo_tpu_torch.ops import window as W
+    sharded = t.distribution == ONED
+    s = t.num_shards
+    counts = [int(c) for c in t.counts] if sharded else [t.nrows]
+    goffs = np.concatenate([[0], np.cumsum(counts)[:-1]]).astype(np.int64)
     res = t.with_columns(t.columns)
     for col, op, param, oname in specs:
-        if op != "rowid":
-            raise NotImplementedError(
-                f"the window op {op!r} (bodo_tpu/ops/window.py) is not "
-                f"ported yet")
-        if t.distribution == ONED:
+        if op == "rowid":
             per = t.shard_capacity
-            goff = np.concatenate([[0], np.cumsum(t.counts)[:-1]])
             local = torch.arange(per, dtype=torch.int64, device=t.device)
-            rid = torch.cat([local + int(off) for off in goff])
+            rid = torch.cat([local + int(off) for off in goffs])
+            rid = torch.where(_padmask(t), rid, torch.full(
+                (), -1, dtype=torch.int64, device=t.device))
+            res.columns[oname] = Column(rid, None, dt.INT64, None)
+            continue
+        c = t.column(col)
+        xs, vs = C.shard_views(c.data, s), C.shard_views(c.valid, s)
+        if op.startswith("cum"):
+            parts = [W.cum_local(op, xs[i], vs[i], counts[i])
+                     for i in range(s)]
+            carries = torch.stack([carry for _, carry in parts])
+            out = []
+            for i, (loc, _) in enumerate(parts):
+                if sharded:
+                    loc = W.cum_combine(op, loc,
+                                        W.cum_carry_exscan(op, carries, i))
+                out.append(W.cum_finalize(op, loc, xs[i], vs[i], counts[i]))
+        elif op.startswith("rolling_"):
+            w = int(param)
+            tails = W.halo_tails(xs, vs, counts, w - 1) \
+                if sharded and w > 1 else None
+            out = []
+            for i in range(s):
+                if tails is not None:
+                    hx, hok = W.multi_hop_halo(tails, i, w - 1)
+                else:  # single block: no predecessor
+                    hx, hok = _empty_halo(max(w - 1, 0), t.device)
+                out.append(W.rolling_local(op[len("rolling_"):], w, xs[i],
+                                           vs[i], counts[i], hx, hok,
+                                           int(goffs[i])))
+        elif op in ("shift", "diff"):
+            n = int(param)
+            tails = W.halo_tails(xs, vs, counts, n) if sharded else None
+            out = []
+            for i in range(s):
+                hx, hok = W.multi_hop_halo(tails, i, n) if sharded \
+                    else _empty_halo(n, t.device)
+                sh, sok = W.shift_local(xs[i], vs[i], counts[i], hx, hok, n)
+                if op == "diff":
+                    padmask = K.row_mask(counts[i], xs[i].shape[0],
+                                         t.device)
+                    ok = K.value_ok(xs[i], vs[i], padmask) & sok
+                    sh = torch.where(ok, xs[i].to(torch.float64) - sh,
+                                     float("nan"))
+                out.append(sh)
         else:
-            rid = torch.arange(t.capacity, dtype=torch.int64,
-                               device=t.device)
-        rid = torch.where(_padmask(t), rid, torch.full(
-            (), -1, dtype=torch.int64, device=t.device))
-        res.columns[oname] = Column(rid, None, dt.INT64, None)
+            raise ValueError(f"unknown window op {op}")
+        res.columns[oname] = Column(C.concat_shards(out), None, dt.FLOAT64,
+                                    None)
+    return res
+
+
+def _empty_halo(k: int, device):
+    return (torch.zeros(k, dtype=torch.float64, device=device),
+            torch.zeros(k, dtype=torch.bool, device=device))
+
+
+# ---------------------------------------------------------------------------
+# ranking and aggregate windows (SQL OVER)
+# ---------------------------------------------------------------------------
+
+def _window_ascending(order_by, ascending) -> List[bool]:
+    if ascending is None:
+        return [True] * len(order_by)
+    if isinstance(ascending, bool):
+        return [ascending] * len(order_by)
+    return list(ascending)
+
+
+def rank_window(t: Table, partition_by: Sequence[str],
+                order_by: Sequence[str],
+                specs: Sequence[Tuple[str, int, str]],
+                ascending=None, na_last: bool = True) -> Table:
+    """Partitioned ranking windows: specs = [(op, param, outname)] with op
+    in row_number/rank/dense_rank/ntile/cumcount.
+
+    REP: one sorted pass (`_rank_window_exec`). 1D with partition keys:
+    tag the rows with their global position (`rowid`), hash-shuffle them
+    so each partition is wholly on one shard (`shuffle_by_key`), rank
+    each shard, then restore the original row order by a sample sort on
+    the position. 1D without partition keys: `_global_rank_sharded`."""
+    partition_by = list(partition_by)
+    order_by = list(order_by)
+    ascending = _window_ascending(order_by, ascending)
+    local = _as_local(t)
+    if local is not None:
+        t = local
+    if t.distribution == ONED:
+        if not partition_by:
+            return _global_rank_sharded(t, order_by, specs,
+                                        tuple(ascending), na_last)
+        keep = t.names
+        t2 = window_table(t, [(t.names[0], "rowid", None, "__rid")])
+        t2 = shuffle_by_key(t2, partition_by)
+        out = _rank_window_exec(t2, partition_by, order_by, specs,
+                                tuple(ascending), na_last)
+        out = sort_table(out, ["__rid"])
+        return out.select(keep + [o for _, _, o in specs])
+    return _rank_window_exec(t, partition_by, order_by, specs,
+                             tuple(ascending), na_last)
+
+
+def _global_rank_sharded(t: Table, order_by, specs, ascending,
+                         na_last: bool) -> Table:
+    """No-partition ranking over the whole 1D table without a gather:
+    sort by the order keys (the sample sort), then on each shard the
+    ranks from the global row index (the exscan of the shard counts), a
+    run head wherever a row differs from the row before it in any order
+    column (typed compares; a shard's first row against the last row of
+    the nearest non-empty shard before it, W.prev_last_value; nulls tie
+    with nulls), and the exscans of the shards' last run heads and run
+    counts; the original row order comes back by a sample sort on the
+    carried position. The JAX package carries the run heads through
+    float64 with a -inf identity clamped to -1; here they are int64 with
+    -1 as the identity, the same values."""
+    from bodo_tpu_torch.ops import window as W
+    route_counts["rank_window_global"] += 1
+    keep = t.names
+    t2 = window_table(t, [(t.names[0], "rowid", None, "__rid")])
+    if order_by:
+        t2 = sort_table(t2, list(order_by), list(ascending), na_last)
+    # else: the original row order is the total order already
+    s = t2.num_shards
+    counts = [int(c) for c in t2.counts]
+    total = sum(counts)
+    goffs = np.concatenate([[0], np.cumsum(counts)[:-1]]).astype(np.int64)
+    cap = t2.shard_capacity
+    dev = t2.device
+    kspecs = [(op, int(p or 0), o) for op, p, o in specs]
+    pos = torch.arange(cap, dtype=torch.int64, device=dev)
+    padmasks = [K.row_mask(c, cap, dev) for c in counts]
+    gidxs = [int(goffs[i]) + pos for i in range(s)]
+    if order_by:
+        news = [torch.zeros(cap, dtype=torch.bool, device=dev)
+                for _ in range(s)]
+        for name in order_by:
+            c = t2.column(name)
+            xs, vs = C.shard_views(c.data, s), C.shard_views(c.valid, s)
+            lasts = W.last_rows(xs, vs, counts)
+            for i in range(s):
+                pv, pok, pexists = W.prev_last_value(lasts, i)
+                x = xs[i]
+                ok = K.value_ok(x, vs[i], padmasks[i])
+                prev_x = torch.cat([pv[None], x[:-1]])
+                prev_ok = torch.cat([pok[None], ok[:-1]])
+                if x.dtype == torch.uint64:  # equality of the same bits
+                    x, prev_x = x.view(torch.int64), prev_x.view(torch.int64)
+                # nulls tie with nulls: the values compare only when both
+                # are real; a validity transition breaks a run
+                diff = (ok & prev_ok & (prev_x != x)) | (prev_ok != ok)
+                no_pred = (pos == 0) & ~pexists
+                news[i] = news[i] | diff | no_pred | (gidxs[i] == 0)
+    else:
+        # no ORDER BY: every row is a peer — one global run
+        news = [g == 0 for g in gidxs]
+    heads = [torch.where(news[i] & padmasks[i], gidxs[i], -1)
+             for i in range(s)]
+    head_carries = torch.stack([h.max() for h in heads])
+    flags = [(news[i] & padmasks[i]).to(torch.int64) for i in range(s)]
+    dense_carries = torch.stack([f.sum() for f in flags])
+    outs = [[] for _ in kspecs]
+    for i in range(s):
+        prefix = torch.cat([head_carries.new_full((1,), -1),
+                            head_carries[:i]]).max()
+        run_head = torch.maximum(W.prefix_scan(heads[i], "max"), prefix)
+        dense = torch.cumsum(flags[i], 0) + dense_carries[:i].sum()
+        gidx = gidxs[i]
+        for j, (op, param, _) in enumerate(kspecs):
+            if op == "row_number":
+                r = gidx + 1
+            elif op == "cumcount":
+                r = gidx
+            elif op == "rank":
+                r = run_head + 1
+            elif op == "dense_rank":
+                r = dense
+            elif op == "ntile":
+                n = param
+                small = total // n
+                rem = total - small * n
+                # first `rem` buckets get (small+1) rows
+                cut = rem * (small + 1)
+                r = torch.where(gidx < cut, gidx // max(small + 1, 1),
+                                rem + (gidx - cut) // max(small, 1)) + 1
+            else:
+                raise ValueError(f"unknown rank op {op}")
+            outs[j].append(torch.where(padmasks[i], r, 0))
+    res = t2.with_columns(t2.columns)
+    for (op, p, oname), parts in zip(kspecs, outs):
+        res.columns[oname] = Column(C.concat_shards(parts), None, dt.INT64,
+                                    None)
+    res = sort_table(res, ["__rid"])
+    return res.select(keep + [o for _, _, o in specs])
+
+
+def _per_block(t: Table, fn):
+    """Run `fn(block index, block arrays getter, count)` on each shard of
+    a 1D table (once on a REP table); returns the list of results."""
+    s = t.num_shards
+    counts = [int(c) for c in t.counts] if t.distribution == ONED \
+        else [t.nrows]
+    views = {n: (C.shard_views(c.data, s), C.shard_views(c.valid, s))
+             for n, c in t.columns.items()}
+
+    def arrays(i, names):
+        return tuple((views[n][0][i], views[n][1][i]) for n in names)
+    return [fn(i, arrays, counts[i]) for i in range(s)]
+
+
+def _rank_window_exec(t: Table, partition_by, order_by, specs,
+                      ascending: Tuple[bool, ...], na_last: bool) -> Table:
+    """The sorted pass (W.rank_window_local) on a REP table, or on each
+    shard of a 1D table whose partitions are colocated."""
+    from bodo_tpu_torch.ops.window import rank_window_local
+    route_counts["rank_window_shuffle" if t.distribution == ONED
+                 else "rank_window_local"] += 1
+    kspecs = tuple((op, int(param or 0)) for op, param, _ in specs)
+    parts = _per_block(t, lambda i, arrays, count: rank_window_local(
+        arrays(i, partition_by), arrays(i, order_by), count, kspecs,
+        ascending, na_last))
+    res = t.with_columns(t.columns)
+    for j, (op, param, oname) in enumerate(specs):
+        res.columns[oname] = Column(C.concat_shards([p[j] for p in parts]),
+                                    None, dt.INT64, None)
+    return res
+
+
+# the aggregate windows that reduce to one value per decimal column:
+# they wait for decimal aggregation (ops/groupby.agg_dtype)
+_DECIMAL_REFUSED = ("sum", "sum0", "mean", "min", "max")
+
+
+def agg_window(t: Table, partition_by: Sequence[str],
+               order_by: Sequence[str],
+               specs: Sequence[Tuple[str, str, tuple, int, str]],
+               ascending=None, na_last: bool = True) -> Table:
+    """Aggregate/navigation windows: specs = [(op, col, frame, param,
+    outname)] with op in sum/sum0/mean/count/min/max/lead/lag/
+    first_value/last_value and frame in ("all",) / ("cumrange",) /
+    ("rows", lo, hi).
+
+    REP: one sorted pass (`_agg_window_exec`). 1D with partition keys:
+    `rowid`, `shuffle_by_key`, the sorted pass on each shard, then a
+    sample sort on the position restores the row order; with no ORDER
+    BY, the order-sensitive specs follow the original row order (the
+    shuffle interleaves source shards, so their sort is pinned to the
+    position). 1D `OVER ()` over sum, sum0, mean, min, max and count:
+    one distributed reduction (`reduce_table`) broadcast to every row
+    (`_broadcast_scalar_column`). 1D with an ordered frame and no
+    partition key gathers the table to REP, runs the sorted pass and
+    shards the result again: the JAX package's route, kept as it is.
+
+    sum, sum0, mean, min and max over a decimal column raise
+    NotImplementedError (decimal aggregation is not ported); count and
+    the gather ops carry the source dtype and work."""
+    for op, col, *_ in specs:
+        if op in _DECIMAL_REFUSED and dt.is_decimal(t.column(col).dtype):
+            raise NotImplementedError(
+                f"window {op} over the decimal column {col!r} is not "
+                f"ported yet (decimal aggregation)")
+    partition_by = list(partition_by)
+    order_by = list(order_by)
+    ascending = _window_ascending(order_by, ascending)
+    local = _as_local(t)
+    if local is not None:
+        t = local
+    if t.distribution == ONED:
+        if not partition_by:
+            whole = (not order_by) and all(
+                tuple(frame) == ("all",) and
+                op in ("sum", "sum0", "mean", "min", "max", "count")
+                for op, _, frame, *_ in specs)
+            if whole:
+                # SUM(x) OVER () etc.: one distributed reduction,
+                # broadcast back — no gather
+                rmap = {"sum": "sumnull", "sum0": "sum"}
+                vals = reduce_table(
+                    t, [(c, rmap.get(op, op), o)
+                        for op, c, frame, p, o in specs])
+                res = t.with_columns(dict(t.columns))
+                for op, c, frame, p, o in specs:
+                    res.columns[o] = _broadcast_scalar_column(
+                        t, vals[o], count_like=(op == "count"))
+                return res
+            # ordered global frames (running totals over a total order)
+            # gather, as in the JAX package
+            route_counts["agg_window_gather"] += 1
+            return agg_window(t.gather(), partition_by, order_by, specs,
+                              ascending, na_last).shard()
+        keep = t.names
+        t2 = window_table(t, [(t.names[0], "rowid", None, "__rid")])
+        t2 = shuffle_by_key(t2, partition_by)
+        exec_order, exec_asc = list(order_by), list(ascending)
+        if not exec_order and any(
+                op in ("lead", "lag", "first_value", "last_value")
+                or frame[0] != "all"
+                for op, _, frame, *_ in specs):
+            exec_order, exec_asc = ["__rid"], [True]
+        out = _agg_window_exec(t2, partition_by, exec_order, specs,
+                               tuple(exec_asc), na_last)
+        out = sort_table(out, ["__rid"])
+        return out.select(keep + [o for *_, o in specs])
+    return _agg_window_exec(t, partition_by, order_by, specs,
+                            tuple(ascending), na_last)
+
+
+def _broadcast_scalar_column(t: Table, v, count_like: bool) -> Column:
+    """A whole-table scalar broadcast to every row of a (possibly
+    sharded) table — the OVER () window result column, filled on the
+    table's device."""
+    import datetime as _dtmod
+
+    import pandas as pd
+    route_counts["agg_window_broadcast"] += 1
+    invalid = False
+    if count_like:
+        fill, dtype = 0 if v is None else int(v), dt.INT64
+    elif v is None or (isinstance(v, float) and np.isnan(v)) or v is pd.NaT:
+        fill, dtype, invalid = 0.0, dt.FLOAT64, True
+    elif isinstance(v, pd.Timestamp):
+        fill, dtype = v.value, dt.DATETIME
+    elif isinstance(v, (pd.Timedelta, np.timedelta64)):
+        fill, dtype = pd.Timedelta(v).value, dt.TIMEDELTA
+    elif isinstance(v, (_dtmod.date, np.datetime64)) and \
+            not isinstance(v, _dtmod.datetime):
+        fill = int((np.datetime64(v, "D") - np.datetime64(0, "D"))
+                   .astype(int))
+        dtype = dt.DATE
+    elif isinstance(v, (bool, np.bool_)):
+        fill, dtype = bool(v), dt.BOOL
+    elif isinstance(v, (int, np.integer)):
+        fill, dtype = int(v), dt.INT64
+    else:
+        fill, dtype = float(v), dt.FLOAT64
+    data = torch.full((t.capacity,), fill, dtype=dtype.torch,
+                      device=t.device)
+    valid = torch.zeros(t.capacity, dtype=torch.bool, device=t.device) \
+        if invalid else None
+    return Column(data, valid, dtype, None)
+
+
+def _agg_window_exec(t: Table, partition_by, order_by, specs,
+                     ascending: Tuple[bool, ...], na_last: bool) -> Table:
+    """The sorted pass (W.agg_window_local) on a REP table, or on each
+    shard of a 1D table whose partitions are colocated. The gather ops
+    keep the source column's dtype and dictionary; the others take the
+    groupby aggregations' output dtypes (`_agg_out_col`; sum0 as sum)."""
+    from bodo_tpu_torch.ops.window import agg_window_local
+    route_counts["agg_window_shuffle" if t.distribution == ONED
+                 else "agg_window_local"] += 1
+    val_cols = list(dict.fromkeys(c for _, c, *_ in specs))
+    vidx = {c: i for i, c in enumerate(val_cols)}
+    kspecs = tuple((op, vidx[c], tuple(frame), int(param or 0))
+                   for op, c, frame, param, _ in specs)
+    parts = _per_block(t, lambda i, arrays, count: agg_window_local(
+        arrays(i, partition_by), arrays(i, order_by), arrays(i, val_cols),
+        count, kspecs, ascending, na_last))
+    res = t.with_columns(t.columns)
+    for j, (op, col, frame, param, oname) in enumerate(specs):
+        d = C.concat_shards([p[j][0] for p in parts])
+        v = C.concat_shards([p[j][1] for p in parts])
+        src = t.column(col)
+        if op in ("lead", "lag", "first_value", "last_value"):
+            res.columns[oname] = Column(d, v, src.dtype, src.dictionary,
+                                        src.vrange)
+        else:
+            res.columns[oname] = _agg_out_col(
+                src, "sum" if op == "sum0" else op, d, v)
     return res
 
 

@@ -113,8 +113,13 @@ class Column:
         if self.dtype is dt.STRING:
             if self.dictionary is None or len(self.dictionary) == 0:
                 return np.full(len(data), None, dtype=object)
-            out = self.dictionary[np.clip(data, 0, len(self.dictionary) - 1)]
-            out = out.astype(object)
+            codes = np.clip(data, 0, len(self.dictionary) - 1)
+            if len(data) >= len(self.dictionary):
+                # at least as many rows as strings: make one str object
+                # a distinct value and gather those, not one a row
+                out = self.dictionary.astype(object)[codes]
+            else:
+                out = self.dictionary[codes].astype(object)
             if valid is not None:
                 out[~valid] = None
             return out

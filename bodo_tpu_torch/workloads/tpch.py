@@ -595,19 +595,39 @@ def check_against_sqlite(got, exp, sql: str, rtol: float,
             raise AssertionError(f"{label} col {c}")
 
 
-def sqlite_results(n_orders: int, seed: int, db_path: str,
-                   workers: int = 6) -> dict:
-    """The sqlite oracle of every query at `gen_tpch(n_orders, seed)`: the
-    frames are loaded into a database file at `db_path` with an index on
-    each join key, and the queries run on `workers` threads, each with
-    its own connection (sqlite releases the GIL while a statement runs).
-    Returns {"results": {q: DataFrame}, "gen_s", "load_s",
-    "query_s": {q: seconds}, "wall_s"}."""
+# the window queries' processes in the oracle (one a query at a time)
+WINDOW_PROCS = 4
+
+
+def windows_oracle_path(out_path: str) -> str:
+    """Where the oracle that writes the TPC-H results to `out_path`
+    writes the window queries' results: beside them."""
+    import os
+    return os.path.join(os.path.dirname(out_path), "windows_oracle.pkl")
+
+
+def sqlite_results(n_orders: int, seed: int, db_path: str, out_path: str,
+                   workers: int = 6) -> None:
+    """The sqlite oracle at `gen_tpch(n_orders, seed)`: the frames are
+    loaded into a database file at `db_path` with an index on each join
+    key; the 22 queries run on `workers` threads, each with its own
+    connection (sqlite releases the GIL while a statement runs), and
+    workloads/windows.WINDOW_SQL, whose queries return millions of rows,
+    beside them in WINDOW_PROCS processes (`_query_to_file`: a row
+    fetched takes the GIL, so threads fetching millions each would
+    queue on it). As soon as the 22 are done, {"results": {q:
+    DataFrame}, "gen_s", "load_s", "query_s": {q: seconds}, "wall_s"}
+    is pickled to `out_path`; when the window queries are done too, the
+    same keys over them to `windows_oracle_path(out_path)`."""
+    import multiprocessing
+    import pickle
     import sqlite3
     import time
-    from concurrent.futures import ThreadPoolExecutor
+    from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
     import pandas as pd
+
+    from bodo_tpu_torch.workloads.windows import WINDOW_SQL
     t0 = time.perf_counter()
     data = gen_tpch(n_orders=n_orders, seed=seed)
     gen_s = time.perf_counter() - t0
@@ -644,18 +664,67 @@ def sqlite_results(n_orders: int, seed: int, db_path: str,
 
     # the slowest queries first, so the pool drains evenly
     order = sorted(QUERIES, key=lambda q: (q not in (9, 20, 7, 18, 21), q))
-    with ThreadPoolExecutor(max_workers=workers) as pool:
+    spawn = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(max_workers=WINDOW_PROCS,
+                             mp_context=spawn) as procs, \
+            ThreadPoolExecutor(max_workers=workers) as pool:
+        windows = {name: procs.submit(_query_to_file, db_path, sql,
+                                      f"{db_path}.{name}.pkl")
+                   for name, sql in WINDOW_SQL.items()}
         done = list(pool.map(run, order))
-    return {"results": {q: df for q, df, _ in done}, "gen_s": gen_s,
-            "load_s": load_s, "query_s": {q: s for q, _, s in done},
-            "wall_s": time.perf_counter() - t0}
+        _dump({"results": {q: df for q, df, _ in done}, "gen_s": gen_s,
+               "load_s": load_s, "query_s": {q: s for q, _, s in done},
+               "wall_s": time.perf_counter() - t0}, out_path)
+        query_s = {name: f.result() for name, f in windows.items()}
+    results = {}
+    for name in WINDOW_SQL:
+        with open(f"{db_path}.{name}.pkl", "rb") as f:
+            results[name] = pickle.load(f)
+    _dump({"results": results, "gen_s": gen_s, "load_s": load_s,
+           "query_s": query_s, "wall_s": time.perf_counter() - t0},
+          windows_oracle_path(out_path))
+
+
+def _query_to_file(db_path: str, sql: str, out_path: str) -> float:
+    """Run one query on a read-only connection of its own (in a worker
+    process) and pickle its DataFrame to `out_path`; temporary tables
+    (a window's partition buffers) stay in memory. Returns the seconds
+    the query took."""
+    import pickle
+    import sqlite3
+    import time
+
+    import pandas as pd
+    c = sqlite3.connect(f"file:{db_path}?mode=ro", uri=True)
+    c.execute("pragma mmap_size = 17179869184")
+    c.execute("pragma cache_size = -1000000")
+    c.execute("pragma temp_store = memory")
+    try:
+        s = time.perf_counter()
+        df = pd.read_sql_query(sql, c)
+        took = time.perf_counter() - s
+    finally:
+        c.close()
+    with open(out_path, "wb") as f:
+        pickle.dump(df, f)
+    return took
+
+
+def _dump(obj, path: str) -> None:
+    """Pickle `obj` to `path` through a temporary name, so a reader that
+    sees the file sees all of it."""
+    import os
+    import pickle
+    with open(path + ".tmp", "wb") as f:
+        pickle.dump(obj, f)
+    os.replace(path + ".tmp", path)
 
 
 def _oracle_main(argv=None) -> int:
     """python -m bodo_tpu_torch.workloads.tpch --n-orders N --seed S
-    --db PATH --out PICKLE: write sqlite_results to PICKLE."""
+    --db PATH --out PICKLE: sqlite_results, the TPC-H queries' results
+    to PICKLE and the window queries' beside it."""
     import argparse
-    import pickle
     p = argparse.ArgumentParser()
     p.add_argument("--n-orders", type=int, default=1_500_000)
     p.add_argument("--seed", type=int, default=0)
@@ -663,11 +732,7 @@ def _oracle_main(argv=None) -> int:
     p.add_argument("--out", required=True)
     p.add_argument("--workers", type=int, default=6)
     a = p.parse_args(argv)
-    res = sqlite_results(a.n_orders, a.seed, a.db, a.workers)
-    with open(a.out + ".tmp", "wb") as f:
-        pickle.dump(res, f)
-    import os
-    os.replace(a.out + ".tmp", a.out)
+    sqlite_results(a.n_orders, a.seed, a.db, a.out, a.workers)
     return 0
 
 

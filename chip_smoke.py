@@ -171,7 +171,38 @@ per source, all started together), then:
      MEDIAN(l_extendedprice) and MODE(l_quantity) of lineitem by
      l_returnflag and l_linestatus, and LISTAGG(s_name, '|') with
      LISTAGG(DISTINCT s_nationkey) of supplier by s_nationkey (counts,
-     modes and strings exact, medians within rtol 1e-14).
+     modes and strings exact, medians within rtol 1e-14);
+  5. runs the window functions over the same frames (run_windows): the
+     eight OVER queries of workloads/windows.WINDOW_SQL (ROW_NUMBER over
+     1.5M partitions, RANK and DENSE_RANK over a GROUP BY, a running
+     SUM, a moving AVG, MAX over a two-sided frame with MIN over whole
+     partitions, LAG and LEAD, NTILE with COUNT(*) over a RANGE frame,
+     FIRST_VALUE of a string with SUM(...) OVER ()), cold then warm,
+     the two bit-identical and both held row for row to sqlite (computed
+     by 4 worker processes of the oracle's process beside its 22
+     queries; integers, strings, dates and nulls exact, window sums
+     within 64 * 2^-52 * sum(|x|), window means within that over their
+     frame's row count);
+     then the rank_window and agg_window calls of workloads/windows on
+     lineitem, REP and on 4 shards (the shuffle and the sample sort:
+     partition_rank and range_partition, whose launches join the
+     kernels line as window_1d_launches; the global ranking; OVER ()
+     through reduce_table; the gather of an ordered frame without a
+     partition key), 1D held to REP; each partition_rank and
+     range_partition call of one more 1D run of W1's call (lineitem's
+     shards: the shuffle's and the sort back's) held to its kernel's
+     plain version and timed, on the kernels line as window_1d_calls;
+     then window_table on the taxi
+     trips' 20,000,000 rows in pickup order (run_window_table;
+     workloads/windows.TABLE_SPECS): cumsum, cummax, cummin, cumprod of
+     a column near 1, rolling sum, mean, min, max and count with w = 7
+     and w = 1000, shift and diff, REP and on 4 shards (the carries and
+     the multi-hop halos), each against pandas on the same arrays (the
+     running sum accumulated in extended precision) and 1D against REP
+     (min, max, counts, shift and diff exact; prefix sums within 64 *
+     2^-52 * sum(|x|), the product within n * 2^-52 relative). The
+     sqlite results are checked last, so this work runs while the
+     oracle computes them.
 
 Any failure raises and exits non-zero. Without a CUDA device it exits
 non-zero before printing any result. The last line is one JSON object
@@ -794,11 +825,11 @@ class _Capture:
         setattr(self.ck, self.name, self.orig)
 
 
-def time_partition_rank(calls):
-    """Hold partition_rank against its plain version on each call the 1D
-    taxi path made, and time the kernel on each; the plain version on the
-    largest. Returns the largest call's row, with the whole path's
-    launches x kernel ms beside launches x bound ms."""
+def time_partition_rank(calls, label: str = "1D taxi path"):
+    """Hold partition_rank against its plain version on each call a path
+    (the 1D taxi path by default) made, and time the kernel on each; the
+    plain version on the largest. Returns the largest call's row, with
+    the whole path's launches x kernel ms beside launches x bound ms."""
     import torch
     from bodo_tpu_torch.ops import cuda_kernels as CK
     path_ms = path_bound_ms = 0.0
@@ -817,15 +848,14 @@ def time_partition_rank(calls):
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
         path_ms += ms
         path_bound_ms += bound_ms
-        print(f"partition_rank (1D taxi path's call {j + 1} of "
+        print(f"partition_rank ({label}'s call {j + 1} of "
               f"{len(calls)}) N={n} K={k} ok_rows={int(ok.sum())}: "
               f"bit_identical={same} kernel_ms={ms:.6f} "
               f"bound_ms={bound_ms:.6f} ({bound_ms / ms:.1%} of the bound)")
         if not same:
             raise AssertionError(f"partition_rank differs from its plain "
-                                 f"version on the 1D taxi path's call "
-                                 f"{j + 1}")
-    print(f"partition_rank on the 1D taxi path: {len(calls)} launches, "
+                                 f"version on the {label}'s call {j + 1}")
+    print(f"partition_rank on the {label}: {len(calls)} launches, "
           f"sum of kernel ms {path_ms:.6f} against sum of bound ms "
           f"{path_bound_ms:.6f}")
     args = max(calls, key=lambda c: c[0].shape[0])
@@ -836,7 +866,8 @@ def time_partition_rank(calls):
     n = dest.shape[0]
     nbytes = 9 * n + 4 * k
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    print(f"partition_rank timing N={n} K={k}: kernel_ms={kernel_ms:.6f} "
+    print(f"partition_rank timing ({label}) N={n} K={k}: "
+          f"kernel_ms={kernel_ms:.6f} "
           f"(again {kernel_ms_again:.6f}) plain_ms={plain_ms:.6f} "
           f"bound_ms={bound_ms:.6f} ({nbytes} bytes at "
           f"{HBM_BYTES_PER_S / 1e12} TB/s); library_ms=null (no single "
@@ -846,7 +877,8 @@ def time_partition_rank(calls):
             "replaces": "bodo_tpu/ops/pallas_kernels.py:432",
             "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
-            "path_ms": path_ms, "path_bound_ms": path_bound_ms}
+            "N": n, "K": k, "path_ms": path_ms,
+            "path_bound_ms": path_bound_ms}
 
 
 def range_bound_ms(s: int, n: int, n_spl: int) -> float:
@@ -2416,9 +2448,11 @@ def start_tpch_oracle(tmp: str):
     """Start the sqlite oracle of the TPC-H phase in a process of its own
     (workloads/tpch.sqlite_results: the same frames from the same seed,
     loaded into a database file with its join keys indexed, the 22
-    queries on 6 threads), so it runs while the phase generates and
-    registers its frames; no timed phase runs beside it. Returns (the
-    process, the path its results are pickled to)."""
+    queries on 6 threads and workloads/windows.WINDOW_SQL in 4 processes
+    beside them), so it runs while the phase generates and registers its
+    frames; no timed phase runs beside it. Returns (the process, the path
+    the TPC-H results are pickled to; the window queries' go beside it,
+    tpch.windows_oracle_path)."""
     out = os.path.join(tmp, "tpch_oracle.pkl")
     with open(os.path.join(tmp, "tpch_oracle.err"), "w") as err:
         proc = subprocess.Popen(
@@ -2428,6 +2462,27 @@ def start_tpch_oracle(tmp: str):
             cwd=os.path.dirname(os.path.abspath(__file__)),
             stdout=subprocess.DEVNULL, stderr=err)
     return proc, out
+
+
+def wait_for_oracle(proc, path: str, timeout: float = 900.0):
+    """Wait until the oracle's process has written `path` (it writes the
+    TPC-H results, then the window queries' results); raise if the
+    process ends without it. Returns the unpickled object and the
+    seconds waited."""
+    import pickle
+    t0 = time.perf_counter()
+    while not os.path.exists(path):
+        if proc.poll() is not None and not os.path.exists(path):
+            with open(os.path.join(os.path.dirname(path),
+                                   "tpch_oracle.err")) as f:
+                raise RuntimeError(f"sqlite oracle ended (rc "
+                                   f"{proc.returncode}) without {path}:\n"
+                                   f"{f.read()[-4000:]}")
+        if time.perf_counter() - t0 > timeout:
+            raise TimeoutError(f"sqlite oracle: no {path} in {timeout} s")
+        time.sleep(0.5)
+    with open(path, "rb") as f:
+        return pickle.load(f), time.perf_counter() - t0
 
 
 def run_tpch(tmp: str, procs: list):
@@ -2444,10 +2499,10 @@ def run_tpch(tmp: str, procs: list):
     (COUNT(DISTINCT), MEDIAN, MODE, LISTAGG), cold and warm, against
     pandas on the same frames (sqlite has no median, mode or ordered
     LISTAGG). The oracle's process is started first and appended to
-    `procs`. Returns (the launches of the phase by kernel, Q16's
-    launches)."""
-    import pickle
-
+    `procs`; it goes on to the window queries (run_windows). Returns (the
+    launches of the phase by kernel, Q16's launches, the context, the
+    window sums' tolerances over its frames (windows.sql_atols), the
+    oracle's process and the path of its window results)."""
     import torch
     from bodo_tpu_torch import relational as R
     from bodo_tpu_torch.ops import cuda_kernels as CK
@@ -2465,23 +2520,17 @@ def run_tpch(tmp: str, procs: list):
     torch.cuda.synchronize()
     register_s = time.perf_counter() - t0
     holistic_want = holistic_sql_oracle(data)
+    from bodo_tpu_torch.workloads import windows as WN
+    window_atols = WN.sql_atols(data)
     del data
     dev_bytes = torch.cuda.memory_allocated()
     print(f"tpch SF1: rows={rows} gen_s={gen_s:.3f} "
           f"register_s={register_s:.3f} memory_allocated={dev_bytes}")
 
-    proc, path = oracle
-    t0 = time.perf_counter()
-    if proc.wait(timeout=900) != 0:
-        with open(os.path.join(os.path.dirname(path),
-                               "tpch_oracle.err")) as f:
-            raise RuntimeError(f"tpch sqlite oracle failed:\n"
-                               f"{f.read()[-4000:]}")
-    with open(path, "rb") as f:
-        ref = pickle.load(f)
+    ref, waited = wait_for_oracle(*oracle)
     print(f"tpch SF1 sqlite oracle (its own process, 6 threads, join keys "
           f"indexed): gen_s={ref['gen_s']:.3f} load_s={ref['load_s']:.3f} "
-          f"wall_s={ref['wall_s']:.3f}, waited {time.perf_counter() - t0:.3f}"
+          f"wall_s={ref['wall_s']:.3f}, waited {waited:.3f}"
           f" s for it; query_s=" + json.dumps(
               {q: round(v, 3) for q, v in sorted(ref["query_s"].items())}))
 
@@ -2530,7 +2579,8 @@ def run_tpch(tmp: str, procs: list):
               f"{ {k: v for k, v in launches.items() if v} } matches "
               f"pandas (counts, modes and strings exact, medians "
               f"rtol={HOLISTIC_RTOL})")
-    return total, by_query[16]
+    return (total, by_query[16], ctx, window_atols, oracle[0],
+            TP.windows_oracle_path(oracle[1]))
 
 
 # the holistic aggregations through SQL over the TPC-H SF1 frames, held
@@ -2585,6 +2635,209 @@ def check_holistic_sql(got, want, keys, label: str) -> None:
                                        err_msg=f"{label} {c}")
         elif not np.array_equal(g.astype(object), w.astype(object)):
             raise AssertionError(f"{label} {c}: {g[:5]!r} vs {w[:5]!r}")
+
+
+def _host_columns(t, names):
+    """The named columns of a table (a 1D one gathered) as host arrays."""
+    g = t.gather() if t.distribution == "1D" else t
+    return {n: g.columns[n].to_numpy(g.nrows) for n in names}
+
+
+def run_windows(ctx, atols, proc, oracle_path: str, trips):
+    """The window functions on the card, after run_tpch, on its context
+    (TPC-H SF1: lineitem 5,999,086 rows, orders 1,500,000):
+
+    (a) each of workloads/windows.WINDOW_SQL (W1-W8) through
+        ctx.sql(q).to_pandas(), cold with the route and launch counts
+        set to 0 just before and read just after, then warm; the two
+        results bit-identical; both held row for row to sqlite, whose
+        results worker processes of the oracle's process compute beside
+        the 22 TPC-H queries (integers, strings, dates and nulls exact,
+        window sums within workloads/windows.prefix_atol of their
+        column);
+    (b) RANK_SPECS and AGG_SPECS, the rank_window and agg_window calls on
+        lineitem (its key, order and value columns), REP and then 1D on
+        SHARDS shards of the card: the partitioned routes (rowid, the
+        hash shuffle through partition_rank, the sorted pass a shard,
+        the sample sort through range_partition), the global ranking,
+        OVER () through reduce_table and an ordered frame without a
+        partition key (gathered); each 1D result held to the REP one
+        (exact, but the window sums within prefix_atol and the means
+        within it over their frame's row count); then, on one more 1D
+        run of W1's call, each partition_rank call of its shuffle and
+        each range_partition call of its sort back held to the kernel's
+        plain version and timed, at the window path's own shapes;
+    (c) window_table on the taxi `trips` (run_window_table).
+
+    The results of (a) are held to sqlite last, so (b) and (c) run while
+    the oracle's process computes them. Each run prints its cold and
+    warm wall, peak memory, routes, launches and rows. Returns the
+    launches of the 1D runs of (b), the partition_rank row of W1's calls
+    (time_partition_rank) and the range_partition rows
+    (time_range_calls)."""
+    import numpy as np
+    import pandas as pd
+    import torch
+    from bodo_tpu_torch import relational as R
+    from bodo_tpu_torch.ops import cuda_kernels as CK
+    from bodo_tpu_torch.parallel.mesh import make_mesh, use_mesh
+    from bodo_tpu_torch.workloads import windows as WN
+
+    got_sql = {}
+    for q, sql in WN.WINDOW_SQL.items():
+        got, cold_s, routes, launches, peak = _drive(
+            lambda: ctx.sql(sql).to_pandas())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = ctx.sql(sql).to_pandas()
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        pd.testing.assert_frame_equal(got, again, check_exact=True,
+                                      obj=f"windows {q} cold vs warm")
+        got_sql[q] = got
+        print(f"windows {q}: rows={len(got)} cold_s={cold_s:.4f} "
+              f"warm_s={warm_s:.4f} max_memory_allocated={peak} "
+              f"routes={routes} kernel_launches="
+              f"{ {k: v for k, v in launches.items() if v} } cold and "
+              f"warm bit-identical")
+
+    lineitem = ctx._tables["lineitem"].table
+    li_cols = _host_columns(lineitem, [
+        "l_partkey", "l_shipdate", "l_orderkey", "l_linenumber",
+        "l_extendedprice", "l_quantity"])
+    total = {k: 0 for k in CK.launches}
+    kernel_calls = None
+    calls = [(n, spec) for n, spec in list(WN.RANK_SPECS.items())
+             + list(WN.AGG_SPECS.items())]
+    for name, spec in calls:
+        pk, ob = spec[0], spec[1]
+        vals = [s[1] for s in spec[2]] if name in WN.AGG_SPECS else []
+        cols = list(dict.fromkeys(pk + ob + vals))
+        outs = [s[-1] for s in spec[2]]
+        src = lineitem.select(cols)
+        rep, rep_s, rep_routes, _, rep_peak = _drive(
+            lambda: WN.run_call(R, src, name))
+        want = _host_columns(rep, outs)
+        with use_mesh(make_mesh(SHARDS, src.device)):
+            sharded = src.shard()
+            out, cold_s, routes, launches, peak = _drive(
+                lambda: WN.run_call(R, sharded, name))
+            warm_s = _warm_s(lambda: WN.run_call(R, sharded, name))
+            if name == "rank partitioned (W1)":
+                with _Capture("partition_rank") as pr, \
+                        _Capture("range_partition") as rp:
+                    WN.run_call(R, sharded, name)
+                kernel_calls = (pr.calls, rp.calls)
+        route = {**WN.RANK_ROUTES, **WN.AGG_ROUTES}[name]
+        if routes.get(route, 0) < 1:
+            raise AssertionError(f"windows 1D {name}: {routes}, want "
+                                 f"{route}")
+        WN.check_against_rep(_host_columns(out, outs), want,
+                             WN.agg_atols(li_cols, outs),
+                             f"windows 1D {name}")
+        for k, v in launches.items():
+            total[k] += v
+        print(f"windows {name}: rows={lineitem.nrows} REP_s={rep_s:.4f} "
+              f"REP max_memory_allocated={rep_peak} routes={rep_routes}; "
+              f"1D on {SHARDS} shards cold_s={cold_s:.4f} warm_s={warm_s:.4f}"
+              f" (median of {STAGE_REPS}) max_memory_allocated={peak} "
+              f"routes={routes} kernel_launches="
+              f"{ {k: v for k, v in launches.items() if v} } matches REP")
+    for k in ("partition_rank", "range_partition"):
+        if total[k] < 1:
+            raise AssertionError(f"windows 1D: {k} not launched")
+    no_f32_accumulate(total, "windows 1D")
+    print(f"windows 1D: kernel launches over the calls {total}")
+    del lineitem, src, li_cols
+    rank_calls, range_calls = kernel_calls
+    if not rank_calls or not range_calls:
+        raise AssertionError(f"windows 1D W1: {len(rank_calls)} "
+                             f"partition_rank and {len(range_calls)} "
+                             f"range_partition calls")
+    rank_row = time_partition_rank(rank_calls, "1D window path (W1)")
+    range_rows = time_range_calls(range_calls, "1D window path (W1)")
+    del kernel_calls, rank_calls, range_calls
+
+    run_window_table(trips)
+    ref, waited = wait_for_oracle(proc, oracle_path)
+    print(f"windows sqlite oracle (4 worker processes of the TPC-H "
+          f"oracle's process): wall_s={ref['wall_s']:.3f} since it started, "
+          f"waited {waited:.3f} s for it; query_s=" + json.dumps(
+              {q: round(v, 3) for q, v in sorted(ref["query_s"].items())}))
+    t0 = time.perf_counter()
+    for q, got in got_sql.items():
+        WN.check_window_sql(got, ref["results"][q], atols.get(q, {}),
+                            f"windows {q}")
+    largest = {q: {c: float(np.max(a)) for c, a in cols.items()}
+               for q, cols in atols.items()}
+    print(f"windows: W1-W8 match sqlite row for row (integers, strings, "
+          f"dates and nulls exact; window sums within "
+          f"{WN.PREFIX_ULPS} * 2^-52 * sum(|x|): "
+          f"{largest}; W4's mavg within that over its frame's row "
+          f"count), checked in "
+          f"{time.perf_counter() - t0:.3f} s")
+    return total, rank_row, range_rows
+
+
+def run_window_table(trips):
+    """window_table on the taxi trips (the REP phases' 20,000,000 rows)
+    in pickup order (sort_table, stable): workloads/windows.TABLE_SPECS
+    (cumsum, cummax, cummin of trip_miles, cumprod of a column near 1,
+    rolling sum, mean, min, max and count with w = 7 and w = 1000, shift
+    and diff), REP and then on SHARDS shards of the sorted table (the
+    carries and the multi-hop halos), each held to pandas on the same
+    arrays, and the 1D result to the REP one (exact, but the prefix sums
+    within prefix_atol and the product within n * 2^-52 relative). Prints
+    the synchronized wall, warm wall, peak memory and rows."""
+    import contextlib
+
+    import numpy as np
+    import torch
+    from bodo_tpu_torch import relational as R
+    from bodo_tpu_torch.parallel.mesh import make_mesh, use_mesh
+    from bodo_tpu_torch.table.table import Column
+    from bodo_tpu_torch.table import dtypes as dt
+    from bodo_tpu_torch.workloads import taxi as T
+    from bodo_tpu_torch.workloads import windows as WN
+
+    t0 = time.perf_counter()
+    trips_np, _ = T.gen_taxi_arrays(MAIN_ROWS, seed=SEED)
+    order = np.argsort(trips_np["pickup_datetime"], kind="stable")
+    miles = trips_np["trip_miles"][order]
+    near = WN.near_one(miles)
+    want = WN.table_oracle(miles, near)
+    del trips_np
+    print(f"window_table: pandas oracle {time.perf_counter() - t0:.3f}s "
+          f"on {len(miles)} rows")
+    src = R.sort_table(trips.select(["pickup_datetime", "trip_miles"]),
+                       ["pickup_datetime"])
+    src.columns["near_one"] = Column(
+        1.0 + (src.column("trip_miles").data - 5.0) * 2e-8, None,
+        dt.FLOAT64)
+    outs = [o for *_, o in WN.TABLE_SPECS]
+    tols = WN.table_tolerances(miles, len(miles))
+    results = {}
+    for label, shard in (("REP", False), ("1D", True)):
+        mesh = use_mesh(make_mesh(SHARDS, src.device)) if shard \
+            else contextlib.nullcontext()
+        with mesh:
+            t = src.shard() if shard else src
+            out, wall_s, _, _, peak = _drive(
+                lambda: R.window_table(t, WN.TABLE_SPECS))
+            warm_s = _warm_s(lambda: R.window_table(t, WN.TABLE_SPECS))
+        got = _host_columns(out, outs)
+        WN.check_table(got, want, tols, f"window_table {label} vs pandas")
+        results[label] = got
+        print(f"window_table {label}: rows={out.nrows} "
+              f"shards={out.num_shards} specs={len(WN.TABLE_SPECS)} "
+              f"pipeline_s={wall_s:.4f} pipeline_warm_s={warm_s:.4f} "
+              f"(median of {STAGE_REPS}) max_memory_allocated={peak} "
+              f"matches pandas")
+        del out
+    WN.check_table(results["1D"], results["REP"], tols,
+                   "window_table 1D vs REP")
+    print(f"window_table: 1D matches REP; tolerances {tols}")
+    torch.cuda.synchronize()
 
 
 def range_launches_per_pass(launches, calls, label: str) -> None:
@@ -2672,6 +2925,7 @@ def _main(CK, dev, tmp: str, procs: list) -> int:
     run_aggregations(*taxi_run[:2])
     colocated = run_holistic(*taxi_run[:2])
     run_union(*taxi_run)
+    trips = taxi_run[0]
     del taxi_run
     rank = time_partition_rank(rank_calls)
     rank["launches"] = oned_launches["partition_rank"]
@@ -2705,7 +2959,21 @@ def _main(CK, dev, tmp: str, procs: list) -> int:
                                  f"main path")
     run_join_matrix()
     run_taxi(SMALL_ROWS, ("join_dense", "groupby_hashed"), "small")
-    tpch, q16 = run_tpch(tmp, procs)
+    tpch, q16, ctx, window_atols, oracle_proc, windows_path = \
+        run_tpch(tmp, procs)
+    windows, window_rank, window_ranges = run_windows(
+        ctx, window_atols, oracle_proc, windows_path, trips)
+    del ctx, trips
+    rank["window_1d_launches"] = windows["partition_rank"]
+    rank["window_1d_calls"] = {
+        f: window_rank[f] for f in ("N", "K", "max_abs_err", "ms",
+                                    "plain_ms", "bound_ms", "path_ms",
+                                    "path_bound_ms")}
+    rank["max_abs_err"] = max(rank["max_abs_err"], window_rank["max_abs_err"])
+    part["window_1d_launches"] = windows["range_partition"]
+    part["window_1d_calls"] = window_ranges
+    part["max_abs_err"] = max(part["max_abs_err"], *(
+        c["max_abs_err"] for c in window_ranges))
     lut["tpch_launches"] = tpch["lut_gather"]
     probe["tpch_launches"] = tpch["hash_probe"]
     lut["tpch_q16_launches"] = q16["lut_gather"]

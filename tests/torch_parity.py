@@ -330,14 +330,23 @@ def reference_routes():
     the method of its last partial stage. `_groupby_agg_colocated` counts
     as groupby_colocated and not as groupby_sort: its per-shard
     groupby_local runs inside a jitted shard_map body, where the spy sees
-    it only when the program is traced."""
+    it only when the program is traced. The windows: `_rank_window_exec`
+    and `_agg_window_exec` count as rank_window_<how> and
+    agg_window_<how>, <how> local on a replicated input and shuffle on a
+    1D one; `_global_rank_sharded` as rank_window_global;
+    `_broadcast_scalar_column` as agg_window_broadcast (once a column);
+    an `agg_window` called inside `agg_window` (the gather of an ordered
+    frame without partition keys) as agg_window_gather."""
     import importlib
     import bodo_tpu.parallel.shuffle as ref_shuffle
     import bodo_tpu.relational as ref_rel
     counts = {name: 0 for name in _REF_ROUTES}
     counts.update(join_rep_hash=0, join_rep_sort=0, join_shuffle=0,
                   groupby_sharded_hash=0, groupby_sharded_sort=0,
-                  groupby_colocated=0)
+                  groupby_colocated=0, rank_window_local=0,
+                  rank_window_shuffle=0, rank_window_global=0,
+                  agg_window_local=0, agg_window_shuffle=0,
+                  agg_window_broadcast=0, agg_window_gather=0)
     saved = []
     last_method = ["sort"]
     partial_method = ["sort"]
@@ -373,7 +382,42 @@ def reference_routes():
         counts["groupby_colocated"] += 1
         return out
 
+    def window_exec_spy(kind, orig):
+        def spy(t, *a, **k):
+            how = "shuffle" if t.distribution == "1D" else "local"
+            counts[f"{kind}_window_{how}"] += 1
+            return orig(t, *a, **k)
+        return spy
+
+    def counting_spy(route, orig):
+        def spy(*a, **k):
+            counts[route] += 1
+            return orig(*a, **k)
+        return spy
+
+    agg_depth = [0]
+
+    def agg_window_spy(*a, _orig=ref_rel.agg_window, **k):
+        if agg_depth[0]:
+            counts["agg_window_gather"] += 1
+        agg_depth[0] += 1
+        try:
+            return _orig(*a, **k)
+        finally:
+            agg_depth[0] -= 1
+
     for mod, fname, spy in (
+            (ref_rel, "_rank_window_exec",
+             window_exec_spy("rank", ref_rel._rank_window_exec)),
+            (ref_rel, "_agg_window_exec",
+             window_exec_spy("agg", ref_rel._agg_window_exec)),
+            (ref_rel, "_global_rank_sharded",
+             counting_spy("rank_window_global",
+                          ref_rel._global_rank_sharded)),
+            (ref_rel, "_broadcast_scalar_column",
+             counting_spy("agg_window_broadcast",
+                          ref_rel._broadcast_scalar_column)),
+            (ref_rel, "agg_window", agg_window_spy),
             (ref_rel, "join_local", join_local_spy),
             (ref_rel, "_groupby_agg_colocated", colocated_spy),
             (ref_rel, "_join_rep", join_rep_spy),
