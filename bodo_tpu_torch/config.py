@@ -89,10 +89,16 @@ def set_config(**kwargs) -> None:
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: `None` means CUDA. A CUDA device
     on a machine without one raises; nothing falls back to the CPU, which
-    runs only when the caller names it."""
+    runs only when the caller names it. A CUDA device comes back with its
+    index named, as a tensor's device names it, so that the devices of
+    tables, meshes and plan sources made on "cuda" compare equal."""
     dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "bodo_tpu_torch runs on CUDA by default and no CUDA device is "
-            "available; pass device='cpu' to run on the CPU explicitly")
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "bodo_tpu_torch runs on CUDA by default and no CUDA device "
+                "is available; pass device='cpu' to run on the CPU "
+                "explicitly")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
     return dev

@@ -1,8 +1,9 @@
 """Datetime field extraction (int64 ns ticks -> civil fields).
 
 Counterpart of bodo_tpu/ops/datetime.py for the fields the relational
-path uses. Branch-free integer arithmetic with floor division, so
-timestamps before 1970 land on the right day.
+path and the pandas frontend's `.dt` accessor use. Branch-free integer
+arithmetic with floor division, so timestamps before 1970 land on the
+right day.
 """
 
 from __future__ import annotations
@@ -11,6 +12,8 @@ import torch
 
 NS_PER_DAY = 86_400_000_000_000
 NS_PER_HOUR = 3_600_000_000_000
+NS_PER_MIN = 60_000_000_000
+NS_PER_SEC = 1_000_000_000
 
 
 def _fdiv(a, b):
@@ -55,6 +58,16 @@ def hour(ns):
     return _fdiv(tod, NS_PER_HOUR)
 
 
+def minute(ns):
+    tod = ns.to(torch.int64) - days_from_ns(ns) * NS_PER_DAY
+    return _fdiv(torch.remainder(tod, NS_PER_HOUR), NS_PER_MIN)
+
+
+def second(ns):
+    tod = ns.to(torch.int64) - days_from_ns(ns) * NS_PER_DAY
+    return _fdiv(torch.remainder(tod, NS_PER_MIN), NS_PER_SEC)
+
+
 def dayofweek(ns):
     """Monday=0 (pandas convention); 1970-01-01 was a Thursday (=3)."""
     return torch.remainder(days_from_ns(ns) + 3, 7)
@@ -65,7 +78,39 @@ def date(ns):
     return days_from_ns(ns).to(torch.int32)
 
 
+def _days_from_civil(y, m, d):
+    """Days since the epoch of civil date (y, m, d); branch-free."""
+    y = y - (m <= 2).to(y.dtype)
+    era = _fdiv(y, 400)
+    yoe = y - era * 400
+    mp = torch.where(m > 2, m - 3, m + 9)
+    doy = _fdiv(153 * mp + 2, 5) + d - 1
+    doe = yoe * 365 + _fdiv(yoe, 4) - _fdiv(yoe, 100) + doy
+    return era * 146097 + doe - 719468
+
+
+def dayofyear(ns):
+    days = days_from_ns(ns)
+    y, _, _ = _civil(days)
+    one = torch.ones_like(y)
+    return days - _days_from_civil(y, one, one) + 1
+
+
+def quarter(ns):
+    return _fdiv(month(ns) - 1, 3) + 1
+
+
+def week(ns):
+    """ISO 8601 week number (1-53): the week of the date's Thursday."""
+    thu = days_from_ns(ns) - dayofweek(ns) + 3
+    y, _, _ = _civil(thu)
+    one = torch.ones_like(y)
+    return _fdiv(thu - _days_from_civil(y, one, one), 7) + 1
+
+
 FIELDS = {
     "year": year, "month": month, "day": day, "hour": hour,
-    "dayofweek": dayofweek, "weekday": dayofweek, "date": date,
+    "minute": minute, "second": second, "dayofweek": dayofweek,
+    "weekday": dayofweek, "dayofyear": dayofyear, "quarter": quarter,
+    "date": date, "week": week, "weekofyear": week,
 }

@@ -30,10 +30,11 @@ sort groupby; 1D: colocated), and LISTAGG (`listagg[:<sep>]`,
 host scalars (REP and 1D; quantiles through `_reduce_quantile`). The
 windows (ops/window.py) are `window_table` (cumulative, rolling, shift,
 diff and rowid), `rank_window` and `agg_window` (SQL OVER), REP and 1D.
-The plan executor (plan/physical.py) also calls `head_table` (LIMIT),
-`select_columns` and `assign_columns`' host pass for a top-level
-DictMap (SQL SUBSTRING, UPPER: the new dictionary is built on the
-host, the codes remapped on the device).
+`shard_frames` decodes each shard of a 1D table to pandas (the pandas
+frontend's groupby.apply). The plan executor (plan/physical.py) also
+calls `head_table` (LIMIT), `select_columns` and `assign_columns`' host
+pass for a top-level DictMap (SQL SUBSTRING, UPPER: the new dictionary
+is built on the host, the codes remapped on the device).
 
 Where the JAX package would go on to a route the port has not ported
 (the projections of StrConcat, ToChar, StrToList and NestedFn;
@@ -1882,6 +1883,24 @@ def shuffle_by_key(t: Table, key_cols: Sequence[str]) -> Table:
     res = t.with_arrays({n: rebuilt[i] for i, n in enumerate(korder)},
                         nrows=int(counts.sum()), counts=counts)
     return _keep_vranges(shrink_to_fit(res.select(names)), t)
+
+
+def shard_frames(t: Table) -> List:
+    """Each shard of a 1D table decoded into its own pandas frame (the
+    frame one worker holds after a shuffle; groupby.apply runs its
+    function on each). A replicated table is one frame."""
+    if t.distribution != ONED:
+        return [t.to_pandas()]
+    per = t.shard_capacity
+    out = []
+    for s in range(t.num_shards):
+        sl = slice(s * per, (s + 1) * per)
+        cols = {n: Column(c.data[sl],
+                          None if c.valid is None else c.valid[sl],
+                          c.dtype, c.dictionary)
+                for n, c in t.columns.items()}
+        out.append(Table(cols, int(t.counts[s]), REP, None).to_pandas())
+    return out
 
 
 def concat_tables(tables: Sequence[Table]) -> Table:

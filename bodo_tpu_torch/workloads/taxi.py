@@ -7,10 +7,11 @@ nyc_taxi_precipitation.py): csv + parquet read, datetime fields, inner
 merge on date, derived bool/bucket columns, a 6-key groupby with
 count + mean, a multi-key sort.
 
-`gen_taxi_data` writes the same files as the JAX package's generator
-(pandas, imported when called); `gen_taxi_arrays` makes the same columns
-as numpy arrays without pandas. `numpy_pipeline` computes the result
-with numpy alone, independent of both packages.
+`frontend_pipeline` runs the same workload through the lazy pandas
+frontend. `gen_taxi_data` writes the same files as the JAX package's
+generator (pandas, imported when called); `gen_taxi_arrays` makes the
+same columns as numpy arrays without pandas. `numpy_pipeline` computes
+the result with numpy alone, independent of both packages.
 """
 
 from __future__ import annotations
@@ -111,6 +112,44 @@ def pipeline(trips, weather, device=None, shard: bool = False,
         return _pipeline(trips, weather)
     with use_mesh(make_mesh(n_shards, trips.device)):
         return _pipeline(trips.shard(), weather)
+
+
+def frontend_pipeline(trips_path: str, weather_path: str, device=None):
+    """The same workload through the lazy pandas frontend (pandas_api),
+    written as the JAX package's frontend_pipeline, which mirrors the
+    reference benchmark's dataframe flavour line for line; the files are
+    read onto `device` (CUDA by default). Returns a pandas frame sorted
+    by the six keys, time_bucket as the bucket names."""
+    import bodo_tpu_torch.pandas_api as bd
+
+    weather = bd.read_csv(weather_path, parse_dates=["DATE"], device=device)
+    weather = weather.rename(columns={"DATE": "date", "PRCP": "precipitation"})
+    trips = bd.read_parquet(trips_path, device=device)
+
+    weather["date"] = weather["date"].dt.date
+    trips["date"] = trips["pickup_datetime"].dt.date
+    trips["month"] = trips["pickup_datetime"].dt.month
+    trips["hour"] = trips["pickup_datetime"].dt.hour
+    trips["weekday"] = trips["pickup_datetime"].dt.dayofweek.isin(
+        [0, 1, 2, 3, 4])
+
+    m = trips.merge(weather, on="date", how="inner")
+    m["date_with_precipitation"] = m["precipitation"] > 0.1
+    m["time_bucket"] = m["hour"].map({8: 0, 9: 0, 10: 0,
+                                      11: 1, 12: 1, 13: 1, 14: 1, 15: 1,
+                                      16: 2, 17: 2, 18: 2,
+                                      19: 3, 20: 3, 21: 3}).fillna(4.0) \
+        .astype("int32")
+    out = m.groupby(KEYS, as_index=False).agg(
+        trip_count=("hvfhs_license_num", "count"),
+        avg_miles=("trip_miles", "mean"))
+    res = out.to_pandas()
+    bucket_names = np.array(["morning", "midday", "afternoon", "evening",
+                             "other"])
+    res["time_bucket"] = bucket_names[res["time_bucket"]]
+    # sort after mapping so the bucket order is the names' (alphabetical),
+    # as in the pandas oracle
+    return res.sort_values(KEYS).reset_index(drop=True)
 
 
 def _pipeline(trips, weather):

@@ -58,6 +58,26 @@ per source, all started together), then:
        the REP run; hybrid_expand is then held against its plain version
        and timed on the read's largest chunk, and on one bw = 8 page of
        20,000 values as one segment;
+     - the lazy pandas frontend on the same files, with its pandas
+       fallback warning an error (run_frontend_taxi,
+       run_frontend_breadth): workloads/taxi.frontend_pipeline (the
+       reference benchmark's dataframe flavour) cold, warm, traced and
+       once more to capture its kernel calls, REP (the dense-LUT merge:
+       lut_gather; the read: hybrid_expand, dict_gather; the dense
+       groupby) and on 4 shards of the card (the broadcast join:
+       hash_probe; the two-phase groupby: partition_rank), against the
+       numpy oracle and, bit for bit, the relational pipeline on the
+       same file (its routes, less its sort; its wall beside the
+       frontend's); then workloads/frontend.program (groupby
+       aggregations with nunique and median, the groupby windows, the
+       Series windows, value_counts, nlargest, drop_duplicates,
+       pivot_table, melt, set_index/sort_index/head, a left merge with a
+       from_pandas dimension) REP and on 4 shards (the sample sort:
+       range_partition) against pandas; lut_gather held and timed on
+       the frontend merge's call, dict_gather and hybrid_expand on the
+       calls of the frontend's own read (its pruned columns), and
+       partition_rank and hash_probe on the 1D frontend taxi run's
+       calls, range_partition on the 1D sort_index's call;
      - the star-schema join at 20,000,000 fact and 5,000,000 dimension
        rows (bench.py's --suite join shape, about one month of TPC-H
        SF10 lineitem against its orders), through the hash join
@@ -1436,16 +1456,16 @@ def run_f32_groupby():
     return launches["f32 dense"], launches["f32 sparse"], acc.calls[0]
 
 
-def run_taxi_read(trips, weather, rep_got, oracle):
+def run_taxi_read(trips, weather, rep_got, oracle, data_dir: str):
     """The taxi read: write the 20M-row trips file as gen_taxi_data does
-    (pandas' to_parquet with pyarrow's defaults), read it through
-    read_parquet's device route with the counts reset just before and
-    read just after, and hold the table bit-identical to the arrays'
-    table; then the pipeline from that file against the numpy oracle
-    and, row for row, the REP run. Returns (kernel launches of the cold
-    read, the arguments of every hybrid_expand_segments call of a later
-    read: one a chunk that has dictionary-index pages)."""
-    import tempfile
+    (pandas' to_parquet with pyarrow's defaults) into `data_dir`, with
+    its weather csv, read it through read_parquet's device route with
+    the counts reset just before and read just after, and hold the table
+    bit-identical to the arrays' table; then the pipeline from that file
+    against the numpy oracle and, row for row, the REP run. Returns
+    (kernel launches of the cold read, the arguments of every
+    hybrid_expand_segments call of a later read: one a chunk that has
+    dictionary-index pages, the trips file's and the csv's paths)."""
     import numpy as np
     import torch
     from bodo_tpu_torch import relational as R
@@ -1456,129 +1476,128 @@ def run_taxi_read(trips, weather, rep_got, oracle):
     from bodo_tpu_torch.workloads import profiling
     from bodo_tpu_torch.workloads import taxi as T
 
-    with tempfile.TemporaryDirectory() as tmp:
-        path = f"{tmp}/trips.parquet"
-        t0 = time.perf_counter()
-        T.gen_taxi_data(MAIN_ROWS, path, f"{tmp}/weather.csv", seed=SEED)
-        encode_s = time.perf_counter() - t0
-        md = footer_metadata(path)
-        codecs = sorted({c.compression for g in md.row_groups
-                         for c in g.columns})
-        if md.num_row_groups != READ_ROW_GROUPS:
-            raise AssertionError(f"taxi read: {md.num_row_groups} row "
-                                 f"groups, want {READ_ROW_GROUPS}")
+    path, csv = f"{data_dir}/trips.parquet", f"{data_dir}/weather.csv"
+    t0 = time.perf_counter()
+    T.gen_taxi_data(MAIN_ROWS, path, csv, seed=SEED)
+    encode_s = time.perf_counter() - t0
+    md = footer_metadata(path)
+    codecs = sorted({c.compression for g in md.row_groups
+                     for c in g.columns})
+    if md.num_row_groups != READ_ROW_GROUPS:
+        raise AssertionError(f"taxi read: {md.num_row_groups} row "
+                             f"groups, want {READ_ROW_GROUPS}")
 
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        DD.reset_decode_counts()
-        CK.reset_launches()
-        t0 = time.perf_counter()
-        got = read_parquet(path)
-        torch.cuda.synchronize()
-        decode_s = time.perf_counter() - t0
-        counts = dict(DD.decode_counts)
-        launches = dict(CK.launches)
-        peak = torch.cuda.max_memory_allocated()
-        print(f"taxi read: rows={got.nrows} row_groups={md.num_row_groups} "
-              f"codecs={codecs} file_bytes={os.path.getsize(path)} "
-              f"encode_s={encode_s:.3f} decode_s={decode_s:.4f} "
-              f"max_memory_allocated={peak}")
-        print(f"taxi read: decode_counts={counts} kernel_launches={launches}")
-        want_cols = len(got.names) * md.num_row_groups
-        if counts["host_decode_cols"] or \
-                counts["device_decode_cols"] != want_cols:
-            raise AssertionError(f"taxi read: not every column decoded on "
-                                 f"the device: {counts}")
-        # a chunk has dictionary-index pages where it has a dictionary
-        # page; the file has no nulls, so no definition-level launches
-        dict_chunks = sum(c.dictionary_page_offset is not None
-                          for g in md.row_groups for c in g.columns)
-        print(f"taxi read: hybrid_expand launches="
-              f"{launches['hybrid_expand']} (one a chunk with dictionary-"
-              f"index pages: {dict_chunks} of {want_cols} chunks; "
-              f"{counts['pages_dict']} dictionary-index pages)")
-        if not 1 <= launches["hybrid_expand"] <= dict_chunks or \
-                launches["dict_gather"] != md.num_row_groups:
-            raise AssertionError(f"taxi read: hybrid_expand or dict_gather "
-                                 f"launches {launches}, {dict_chunks} "
-                                 f"chunks with dictionary pages")
-        if got.names != trips.names or got.nrows != trips.nrows or \
-                got.capacity != trips.capacity:
-            raise AssertionError(f"taxi read: {got} vs the arrays' {trips}")
-        for name in trips.names:
-            a, b = got.column(name), trips.column(name)
-            same = (a.dtype is b.dtype and a.valid is None
-                    and b.valid is None and a.vrange == b.vrange
-                    and bool(torch.equal(a.data[:got.nrows],
-                                         b.data[:got.nrows])))
-            if b.dictionary is not None:
-                same = same and np.array_equal(a.dictionary, b.dictionary)
-            if not same:
-                raise AssertionError(f"taxi read: column {name} differs "
-                                     f"from the arrays' table")
-        print("taxi read: bit-identical to the arrays' table (data, no "
-              "masks, dictionaries; vranges are the footer's min/max, "
-              "equal to the arrays')")
-        del got
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    DD.reset_decode_counts()
+    CK.reset_launches()
+    t0 = time.perf_counter()
+    got = read_parquet(path)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    counts = dict(DD.decode_counts)
+    launches = dict(CK.launches)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"taxi read: rows={got.nrows} row_groups={md.num_row_groups} "
+          f"codecs={codecs} file_bytes={os.path.getsize(path)} "
+          f"encode_s={encode_s:.3f} decode_s={decode_s:.4f} "
+          f"max_memory_allocated={peak}")
+    print(f"taxi read: decode_counts={counts} kernel_launches={launches}")
+    want_cols = len(got.names) * md.num_row_groups
+    if counts["host_decode_cols"] or \
+            counts["device_decode_cols"] != want_cols:
+        raise AssertionError(f"taxi read: not every column decoded on "
+                             f"the device: {counts}")
+    # a chunk has dictionary-index pages where it has a dictionary
+    # page; the file has no nulls, so no definition-level launches
+    dict_chunks = sum(c.dictionary_page_offset is not None
+                      for g in md.row_groups for c in g.columns)
+    print(f"taxi read: hybrid_expand launches="
+          f"{launches['hybrid_expand']} (one a chunk with dictionary-"
+          f"index pages: {dict_chunks} of {want_cols} chunks; "
+          f"{counts['pages_dict']} dictionary-index pages)")
+    if not 1 <= launches["hybrid_expand"] <= dict_chunks or \
+            launches["dict_gather"] != md.num_row_groups:
+        raise AssertionError(f"taxi read: hybrid_expand or dict_gather "
+                             f"launches {launches}, {dict_chunks} "
+                             f"chunks with dictionary pages")
+    if got.names != trips.names or got.nrows != trips.nrows or \
+            got.capacity != trips.capacity:
+        raise AssertionError(f"taxi read: {got} vs the arrays' {trips}")
+    for name in trips.names:
+        a, b = got.column(name), trips.column(name)
+        same = (a.dtype is b.dtype and a.valid is None
+                and b.valid is None and a.vrange == b.vrange
+                and bool(torch.equal(a.data[:got.nrows],
+                                     b.data[:got.nrows])))
+        if b.dictionary is not None:
+            same = same and np.array_equal(a.dictionary, b.dictionary)
+        if not same:
+            raise AssertionError(f"taxi read: column {name} differs "
+                                 f"from the arrays' table")
+    print("taxi read: bit-identical to the arrays' table (data, no "
+          "masks, dictionaries; vranges are the footer's min/max, "
+          "equal to the arrays')")
+    del got
 
+    t0 = time.perf_counter()
+    read_parquet(path)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    with _Capture("hybrid_expand_segments") as expand:
+        tr = profiling.trace(lambda: read_parquet(path))
+    device_calls = sum(r["calls"] for r in tr["top_kernels_ms"])
+    print(f"taxi read: decode_warm_s={warm_s:.4f} "
+          f"traced_wall_s={tr['traced_wall_s']:.4f} "
+          f"device_ms={tr['device_ms']:.3f} "
+          f"device_busy_share={tr['device_busy_share']:.4f} "
+          f"device_calls(top 25 rows)={device_calls}")
+    for r in tr["port_kernels_ms"]:
+        print(f"taxi read (traced): port kernel {r['ms']:.3f} ms "
+              f"x{r['calls']} {r['kernel'][:100]}")
+    for r in tr["top_kernels_ms"][:10]:
+        print(f"taxi read: device {r['ms']:.3f} ms x{r['calls']} "
+              f"{r['kernel'][:100]}")
+    for r in tr["top_ops_device_ms"][:12]:
+        print(f"taxi read: operator {r['ms']:.3f} ms x{r['calls']} "
+              f"{r['op'][:100]}")
+    # where the read's wall goes, each stage and substage synchronized
+    # (the syncs add to the total)
+    spent = profiling.stage_means(
+        lambda: read_parquet(path), 1,
+        [(P, "footer_metadata"), (DD, "fetch_row_group"),
+         (DD, "decode_row_group"), (DD, "concat_tables_rep")],
+        [(P, "_raw_range", "raw range reads"),
+         (DD, "_decompress", "page decompression"),
+         (DD, "_parse_hybrid", "run-header walks"),
+         (DD, "_stage_chunk", "chunk staging (host)"),
+         (DD._Staging, "to", "staging copy to the device"),
+         (DD, "_run_chunk_program", "chunk decodes"),
+         (CK, "dict_gather", "dict_gather")])
+    print("taxi read: stages (s, synchronized host clock, one read): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in spent.items()))
+    # the host route on the same file: pyarrow's decode and the copy
+    # to the card, which the device route replaces as the default
+    for run in ("cold", "warm"):
         t0 = time.perf_counter()
-        read_parquet(path)
+        host = P._read_host([path], None, "cuda")
         torch.cuda.synchronize()
-        warm_s = time.perf_counter() - t0
-        with _Capture("hybrid_expand_segments") as expand:
-            tr = profiling.trace(lambda: read_parquet(path))
-        device_calls = sum(r["calls"] for r in tr["top_kernels_ms"])
-        print(f"taxi read: decode_warm_s={warm_s:.4f} "
-              f"traced_wall_s={tr['traced_wall_s']:.4f} "
-              f"device_ms={tr['device_ms']:.3f} "
-              f"device_busy_share={tr['device_busy_share']:.4f} "
-              f"device_calls(top 25 rows)={device_calls}")
-        for r in tr["port_kernels_ms"]:
-            print(f"taxi read (traced): port kernel {r['ms']:.3f} ms "
-                  f"x{r['calls']} {r['kernel'][:100]}")
-        for r in tr["top_kernels_ms"][:10]:
-            print(f"taxi read: device {r['ms']:.3f} ms x{r['calls']} "
-                  f"{r['kernel'][:100]}")
-        for r in tr["top_ops_device_ms"][:12]:
-            print(f"taxi read: operator {r['ms']:.3f} ms x{r['calls']} "
-                  f"{r['op'][:100]}")
-        # where the read's wall goes, each stage and substage synchronized
-        # (the syncs add to the total)
-        spent = profiling.stage_means(
-            lambda: read_parquet(path), 1,
-            [(P, "footer_metadata"), (DD, "fetch_row_group"),
-             (DD, "decode_row_group"), (DD, "concat_tables_rep")],
-            [(P, "_raw_range", "raw range reads"),
-             (DD, "_decompress", "page decompression"),
-             (DD, "_parse_hybrid", "run-header walks"),
-             (DD, "_stage_chunk", "chunk staging (host)"),
-             (DD._Staging, "to", "staging copy to the device"),
-             (DD, "_run_chunk_program", "chunk decodes"),
-             (CK, "dict_gather", "dict_gather")])
-        print("taxi read: stages (s, synchronized host clock, one read): "
-              + ", ".join(f"{k} {v:.4f}" for k, v in spent.items()))
-        # the host route on the same file: pyarrow's decode and the copy
-        # to the card, which the device route replaces as the default
-        for run in ("cold", "warm"):
-            t0 = time.perf_counter()
-            host = P._read_host([path], None, "cuda")
-            torch.cuda.synchronize()
-            print(f"taxi read: host route (pyarrow decode + copy to the "
-                  f"device, no footer ranges) {run} "
-                  f"s={time.perf_counter() - t0:.4f}")
-            del host
+        print(f"taxi read: host route (pyarrow decode + copy to the "
+              f"device, no footer ranges) {run} "
+              f"s={time.perf_counter() - t0:.4f}")
+        del host
 
-        R.reset_route_counts()
-        CK.reset_launches()
-        t0 = time.perf_counter()
-        out = T.pipeline(path, weather)
-        torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
-        routes = {k: v for k, v in R.route_counts.items() if v}
-        file_launches = dict(CK.launches)
-        res = out.to_numpy()
-        T.check_against(res, oracle, rtol=AVG_RTOL)
-        T.check_against(res, rep_got, rtol=AVG_RTOL)
+    R.reset_route_counts()
+    CK.reset_launches()
+    t0 = time.perf_counter()
+    out = T.pipeline(path, weather)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    routes = {k: v for k, v in R.route_counts.items() if v}
+    file_launches = dict(CK.launches)
+    res = out.to_numpy()
+    T.check_against(res, oracle, rtol=AVG_RTOL)
+    T.check_against(res, rep_got, rtol=AVG_RTOL)
     print(f"taxi read -> pipeline: groups={out.nrows} wall_s={wall_s:.4f} "
           f"(read included) route_counts={routes} "
           f"kernel_launches={file_launches}")
@@ -1590,7 +1609,7 @@ def run_taxi_read(trips, weather, rep_got, oracle):
         raise AssertionError(f"taxi read -> pipeline: launches "
                              f"{file_launches}")
     no_f32_accumulate(file_launches, "taxi read -> pipeline")
-    return launches, expand.calls
+    return launches, expand.calls, path, csv
 
 
 def hybrid_expand_bytes(segs, starts, is_rle, bits) -> int:
@@ -1621,12 +1640,14 @@ def hybrid_expand_bytes(segs, starts, is_rle, bits) -> int:
     return 56 * len(segs) + 17 * runs + page + 4 * int(segs[:, 1].sum())
 
 
-def time_hybrid_expand(calls):
-    """Hold hybrid_expand_segments against its plain version on the taxi
+def time_hybrid_expand(calls, label: str = "taxi read",
+                       one_page: bool = True):
+    """Hold hybrid_expand_segments against its plain version on the
     read's largest chunk (`calls`: the arguments of each chunk launch of
-    a read) and time both there, beside its bound; then time the read's
-    first bw = 8 page of 20,000 values as one segment (the kernel, and
-    the per-page entry, which copies its one-row table first)."""
+    a read) and time both there, beside its bound; then, with
+    `one_page`, time the read's first bw = 8 page of 20,000 values as
+    one segment (the kernel, and the per-page entry, which copies its
+    one-row table first)."""
     import torch
     from bodo_tpu_torch.ops import cuda_kernels as CK
 
@@ -1637,8 +1658,8 @@ def time_hybrid_expand(calls):
     torch.cuda.synchronize()
     err = int((got.long() - want.long()).abs().max())
     if not torch.equal(got, want):
-        raise AssertionError("hybrid_expand differs from its plain version "
-                             "on the taxi read's largest chunk")
+        raise AssertionError(f"hybrid_expand differs from its plain "
+                             f"version on the {label}'s largest chunk")
     kernel_ms = device_ms(lambda: CK.hybrid_expand_segments(*args))
     plain_ms = device_ms(lambda: CK.hybrid_expand_segments_plain(*args))
     kernel_ms_again = device_ms(lambda: CK.hybrid_expand_segments(*args))
@@ -1646,7 +1667,8 @@ def time_hybrid_expand(calls):
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     table = segs.cpu().tolist()
     widths = sorted({row[CK.SEG_BW] for row in table})
-    print(f"hybrid_expand timing (taxi read's largest chunk) "
+    print(f"hybrid_expand timing ({label}'s largest chunk, of "
+          f"{len(calls)} chunk launches) "
           f"segments={len(table)} values={n_total} runs={starts.shape[0]} "
           f"widths={widths} staged_bytes={data.shape[0]}: "
           f"bit_identical=True kernel_ms={kernel_ms:.6f} (again "
@@ -1660,6 +1682,8 @@ def time_hybrid_expand(calls):
            "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
            "chunk_segments": len(table), "chunk_values": n_total}
+    if not one_page:
+        return row
     found = [(a, row) for a in calls for row in a[1].cpu().tolist()
              if row[CK.SEG_BW] == 8 and row[CK.SEG_N] == 20_000]
     if not found:
@@ -2840,6 +2864,219 @@ def run_window_table(trips):
     torch.cuda.synchronize()
 
 
+FALLBACK_WARNING = ".*falling back to pandas"
+
+
+class _NoFallback:
+    """A warnings scope in which the pandas frontend's fallback warning
+    is an error: no path of the frontend phases may fall back. The
+    warning has no switch (utils/logging.warn_fallback), so every
+    fallback raises here."""
+
+    def __enter__(self):
+        import warnings
+        self.scope = warnings.catch_warnings()
+        self.scope.__enter__()
+        warnings.filterwarnings("error", message=FALLBACK_WARNING)
+
+    def __exit__(self, *exc):
+        return self.scope.__exit__(*exc)
+
+
+def _mesh_or_rep(shards: int):
+    """A mesh of `shards` shards of the card as the active mesh, or
+    nothing for 1 (REP)."""
+    import contextlib
+    from bodo_tpu_torch.parallel.mesh import make_mesh, use_mesh
+    if shards == 1:
+        return contextlib.nullcontext()
+    return use_mesh(make_mesh(shards, "cuda"))
+
+
+def time_lut_calls(calls, label: str, entry: str = "lut_gather"):
+    """Hold lut_gather against its plain version on each call a path made
+    through `entry` (lut_gather, or dict_gather: the same kernel) and
+    time it there beside the plain version, lut[codes] and its bound.
+    Returns one row a call."""
+    import torch
+    from bodo_tpu_torch.ops import cuda_kernels as CK
+    gather = getattr(CK, entry)
+    rows = []
+    for j, (codes, lut) in enumerate(calls):
+        got = gather(codes, lut)
+        want = CK.lut_gather_plain(codes, lut)
+        torch.cuda.synchronize()
+        err = int((got.long() - want.long()).abs().max()) \
+            if got.numel() else 0
+        if not bool(torch.equal(got, want)):
+            raise AssertionError(f"{entry} differs from its plain "
+                                 f"version on the {label}'s call {j + 1}")
+        n, k = codes.shape[0], lut.shape[0]
+        t = {"ms": device_ms(lambda: gather(codes, lut)),
+             "plain_ms": device_ms(lambda: CK.lut_gather_plain(codes, lut)),
+             "library_ms": device_ms(lambda: lut[codes])}
+        nbytes = 4 * n + 4 * n + 4 * k  # codes read, output written, LUT
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        print(f"{entry} ({label}'s call {j + 1} of {len(calls)}) N={n} "
+              f"K={k}: bit_identical=True kernel_ms={t['ms']:.6f} "
+              f"plain_ms={t['plain_ms']:.6f} library_ms(lut[codes])="
+              f"{t['library_ms']:.6f} bound_ms={bound:.6f} "
+              f"({bound / t['ms']:.1%} of the bound)")
+        rows.append({"N": n, "K": k, "max_abs_err": err, "bound_ms": bound,
+                     **t})
+    return rows
+
+
+def run_frontend_taxi(path: str, csv: str, trips, weather, oracle):
+    """The taxi pipeline through the lazy pandas frontend
+    (workloads/taxi.frontend_pipeline) on the 20,000,000-row trips file
+    and its weather csv, REP and then on SHARDS shards of the card (the
+    trips sharded by the plan executor's scan policy, the weather
+    replicated), with the fallback warning an error:
+
+      - a cold run with the route and launch counts set to 0 just before
+        and read just after, then a warm run, the two equal; a traced run
+        (the device's busy share); a run that captures the kernel calls;
+      - the result held to the numpy oracle (keys and trip_count exact,
+        avg_miles within AVG_RTOL) and to the relational pipeline on the
+        same file (workloads/taxi.pipeline, timed beside it: the
+        frontend's overhead) bit for bit (the same groupby over the same
+        joined rows);
+      - the routes: the relational pipeline's, without its sort (REP:
+        join_dense, groupby_dense); the launches: lut_gather (the merge's
+        dense-LUT probe), hybrid_expand and dict_gather (the read) on
+        REP; hash_probe (the broadcast join) and partition_rank (the
+        two-phase groupby) on 1D.
+
+    Returns ({"REP": launches, "1D": launches}, the captured calls of
+    lut_gather, hybrid_expand_segments and dict_gather of the REP run and
+    of partition_rank and hash_probe of the 1D run)."""
+    import contextlib
+
+    import pandas as pd
+    from bodo_tpu_torch.workloads import profiling
+    from bodo_tpu_torch.workloads import taxi as T
+
+    def front():
+        return T.frontend_pipeline(path, csv)
+
+    out = {}
+    calls = {}
+    for label, shards in (("REP", 1), ("1D", SHARDS)):
+        lab = f"frontend taxi {label}"
+        with _mesh_or_rep(shards), _NoFallback():
+            got, cold_s, routes, launches, cold_peak = _drive(front)
+            again, warm_s, _, _, warm_peak = _drive(front)
+            tr = profiling.trace(front)
+            names = ("lut_gather", "hybrid_expand_segments",
+                     "dict_gather") if shards == 1 else \
+                ("partition_rank", "hash_probe")
+            with contextlib.ExitStack() as stack:
+                caps = {k: stack.enter_context(_Capture(k)) for k in names}
+                front()
+            calls.update({k: c.calls for k, c in caps.items()})
+        pd.testing.assert_frame_equal(got, again, check_exact=True,
+                                      obj=f"{lab} cold vs warm")
+        got_np = {k: got[k].to_numpy() for k in got.columns}
+        T.check_against(got_np, oracle, rtol=AVG_RTOL)
+
+        def rel():
+            return T.pipeline(path, csv, shard=shards > 1, n_shards=SHARDS)
+
+        rel_out, rel_cold_s, rel_routes, _, rel_peak = _drive(rel)
+        _, rel_warm_s, _, _, _ = _drive(rel)
+        _, rel_pandas_s, _, _, _ = _drive(lambda: rel().to_pandas())
+        T.check_against(got_np, rel_out.to_numpy(), rtol=0.0)
+        want_routes = {k: v for k, v in rel_routes.items()
+                       if not k.startswith("sort_")}
+        print(f"{lab}: rows={MAIN_ROWS} groups={len(got)} shards={shards} "
+              f"cold_s={cold_s:.4f} warm_s={warm_s:.4f} "
+              f"max_memory_allocated cold={cold_peak} warm={warm_peak} "
+              f"traced_wall_s={tr['traced_wall_s']:.4f} "
+              f"device_ms={tr['device_ms']:.3f} "
+              f"device_busy_share={tr['device_busy_share']:.4f}")
+        print(f"{lab}: relational pipeline on the same file cold_s="
+              f"{rel_cold_s:.4f} warm_s={rel_warm_s:.4f} (+ to_pandas "
+              f"{rel_pandas_s:.4f}) max_memory_allocated={rel_peak} "
+              f"routes={rel_routes}; frontend warm / relational warm = "
+              f"{warm_s / rel_warm_s:.3f}, / relational + to_pandas = "
+              f"{warm_s / rel_pandas_s:.3f}")
+        for r in tr["top_ops_device_ms"][:6]:
+            print(f"{lab} (traced): operator {r['ms']:.3f} ms x{r['calls']} "
+                  f"{r['op'][:90]}")
+        print(f"{lab}: route_counts={routes} kernel_launches="
+              f"{ {k: v for k, v in launches.items() if v} }")
+        print(f"{lab}: matches the numpy oracle (keys and trip_count exact, "
+              f"avg_miles rtol={AVG_RTOL}) and the relational pipeline "
+              f"bit for bit; cold and warm equal; no pandas fallback")
+        if routes != want_routes:
+            raise AssertionError(f"{lab}: routes {routes}, the relational "
+                                 f"pipeline's {want_routes}")
+        if shards == 1 and not (routes.get("join_dense") and
+                                routes.get("groupby_dense")):
+            raise AssertionError(f"{lab}: routes {routes}")
+        want = ("lut_gather", "hybrid_expand", "dict_gather") \
+            if shards == 1 else ("hash_probe", "partition_rank",
+                                 "hybrid_expand", "dict_gather")
+        for k in want:
+            if launches[k] < 1:
+                raise AssertionError(f"{lab}: {k} not launched")
+        no_f32_accumulate(launches, lab)
+        out[label] = launches
+        del got, again, rel_out
+    return out, calls
+
+
+def run_frontend_breadth(path: str):
+    """workloads/frontend.program (groupby aggregations with nunique and
+    median, the groupby windows, the Series windows, value_counts,
+    nlargest, drop_duplicates, pivot_table, melt, set_index/sort_index/
+    head, a left merge with a from_pandas dimension) on the 20,000,000-row
+    trips file, REP and on SHARDS shards of the card, each run with the
+    route and launch counts set to 0 just before and read just after,
+    held to workloads/frontend.pandas_program on the same file
+    (workloads/frontend.check: exact, floats within AVG_RTOL, the window
+    sums within prefix_atol); the fallback warning an error. Returns
+    ({"REP": launches, "1D": launches}, the range_partition calls of the
+    1D sort_index of the program, captured on one more run of it)."""
+    import bodo_tpu_torch.pandas_api as bd
+    from bodo_tpu_torch.workloads import frontend as FE
+
+    zones = FE.dimension_frame(SEED)
+    t0 = time.perf_counter()
+    want = FE.pandas_program(path, zones)
+    print(f"frontend breadth: pandas oracle {time.perf_counter() - t0:.3f}s "
+          f"on {MAIN_ROWS} rows")
+    out = {}
+    range_calls = []
+    for label, shards in (("REP", 1), ("1D", SHARDS)):
+        lab = f"frontend breadth {label}"
+        with _mesh_or_rep(shards), _NoFallback():
+            got, wall_s, routes, launches, peak = _drive(
+                lambda: FE.program(bd, path, zones))
+            if shards > 1:
+                with _Capture("range_partition") as rp:
+                    bd.read_parquet(path).set_index("trip_miles") \
+                        .sort_index().head(10).to_pandas()
+                range_calls = rp.calls
+        FE.check(got, want, AVG_RTOL, lab)
+        print(f"{lab}: rows={MAIN_ROWS} results={len(got)} shards={shards} "
+              f"wall_s={wall_s:.4f} max_memory_allocated={peak}")
+        print(f"{lab}: route_counts={routes} kernel_launches="
+              f"{ {k: v for k, v in launches.items() if v} }")
+        print(f"{lab}: matches pandas ({sorted(got)}; floats rtol="
+              f"{AVG_RTOL}, window sums within prefix_atol); no pandas "
+              f"fallback")
+        no_f32_accumulate(launches, lab)
+        out[label] = launches
+        del got
+    if out["1D"]["range_partition"] < 1 or not range_calls:
+        raise AssertionError(f"frontend breadth 1D: range_partition "
+                             f"launches {out['1D']['range_partition']}, "
+                             f"{len(range_calls)} captured calls")
+    return out, range_calls
+
+
 def range_launches_per_pass(launches, calls, label: str) -> None:
     """One range_partition call, and so one launch, a sample-sort pass:
     the calls of a later run (as many as its passes) against the first
@@ -2911,11 +3148,44 @@ def _main(CK, dev, tmp: str, procs: list) -> int:
                                                    "groupby_dense"),
                                        "main path")
     lut["launches"] = taxi_launches["lut_gather"]
-    read_launches, expand_calls = run_taxi_read(*taxi_run)
+    read_launches, expand_calls, trips_path, weather_path = \
+        run_taxi_read(*taxi_run, tmp)
     lut["dict_gather_launches"] = read_launches["dict_gather"]
     expand = time_hybrid_expand(expand_calls)
     expand["launches"] = read_launches["hybrid_expand"]
     del expand_calls
+    # the pandas frontend on the same files: its kernels' calls held to
+    # their plain versions and timed at the frontend's shapes
+    front, front_calls = run_frontend_taxi(
+        trips_path, weather_path, *taxi_run[:2], taxi_run[3])
+    lut["frontend_launches"] = front["REP"]["lut_gather"]
+    lut["frontend_dict_gather_launches"] = front["REP"]["dict_gather"]
+    lut["frontend_calls"] = time_lut_calls(front_calls["lut_gather"],
+                                           "frontend taxi merge")
+    lut["frontend_dict_gather_calls"] = time_lut_calls(
+        front_calls["dict_gather"], "frontend taxi read", "dict_gather")
+    lut["max_abs_err"] = max(lut["max_abs_err"], *(
+        c["max_abs_err"] for c in lut["frontend_calls"]
+        + lut["frontend_dict_gather_calls"]))
+    expand["frontend_launches"] = front["REP"]["hybrid_expand"]
+    front_expand = time_hybrid_expand(
+        front_calls["hybrid_expand_segments"], "frontend taxi read",
+        one_page=False)
+    expand["frontend_call"] = {
+        f: front_expand[f] for f in ("chunk_segments", "chunk_values",
+                                     "max_abs_err", "ms", "plain_ms",
+                                     "bound_ms")}
+    expand["max_abs_err"] = max(expand["max_abs_err"],
+                                front_expand["max_abs_err"])
+    front_rank = time_partition_rank(front_calls["partition_rank"],
+                                     "1D frontend taxi")
+    front_probes = time_probe_calls(front_calls["hash_probe"],
+                                    "1D frontend taxi")
+    del front_calls
+    breadth, breadth_ranges = run_frontend_breadth(trips_path)
+    front_ranges = time_range_calls(breadth_ranges,
+                                    "1D frontend sort_index")
+    del breadth_ranges
     star_launches, probe_args, star_run = run_star()
     probe = time_hash_probe(probe_args)
     probe["launches"] = star_launches["hash_probe"]
@@ -2933,6 +3203,21 @@ def _main(CK, dev, tmp: str, procs: list) -> int:
     part = time_range_partition(range_calls, dev)
     part["launches"] = oned_launches["range_partition"]
     probe["taxi_1d_launches"] = oned_launches["hash_probe"]
+    probe["frontend_1d_launches"] = front["1D"]["hash_probe"]
+    probe["frontend_breadth_1d_launches"] = breadth["1D"]["hash_probe"]
+    lut["frontend_breadth_launches"] = breadth["REP"]["lut_gather"]
+    probe["frontend_1d_calls"] = front_probes
+    rank["frontend_1d_launches"] = front["1D"]["partition_rank"]
+    rank["frontend_breadth_1d_launches"] = breadth["1D"]["partition_rank"]
+    rank["frontend_1d_calls"] = {
+        f: front_rank[f] for f in ("N", "K", "max_abs_err", "ms",
+                                   "plain_ms", "bound_ms", "path_ms",
+                                   "path_bound_ms")}
+    rank["max_abs_err"] = max(rank["max_abs_err"], front_rank["max_abs_err"])
+    part["frontend_breadth_1d_launches"] = breadth["1D"]["range_partition"]
+    part["frontend_1d_calls"] = front_ranges
+    part["max_abs_err"] = max(part["max_abs_err"], *(
+        c["max_abs_err"] for c in front_ranges))
     probe["taxi_1d_calls"] = time_probe_calls(oned_probes,
                                               "1D taxi path")
     del rank_calls, range_calls, oned_probes

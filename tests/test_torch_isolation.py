@@ -3,7 +3,8 @@ neither JAX nor the JAX package (nor pandas/pyarrow, which only its
 readers and converters import when called); its entry points default to
 CUDA and raise without it instead of running on the CPU (the 1D ones too:
 make_mesh, Table.shard on the default mesh, the sharded pipelines;
-read_parquet; the f32 groupby pipelines); the
+read_parquet; the f32 groupby pipelines; the pandas frontend's sources
+and its taxi pipeline); the
 CUDA kernel wrappers never fall back to their plain versions for a
 tensor that is not on the CPU. One test runs every check (see
 tests/torch_parity.py on why each test_torch_* file holds one test)."""
@@ -38,6 +39,8 @@ if not torch.cuda.is_available():
     from bodo_tpu_torch.parallel.mesh import make_mesh
     from bodo_tpu_torch.table import Table
     from bodo_tpu_torch.io import read_parquet
+    import bodo_tpu_torch.pandas_api as bd
+    from bodo_tpu_torch.workloads.taxi import frontend_pipeline
     import numpy as np
     cpu_table = Table.from_numpy({"a": np.arange(3)}, device="cpu")
     for call in (lambda: pipeline(sys.argv[1], sys.argv[2]),
@@ -52,7 +55,12 @@ if not torch.cuda.is_available():
                  lambda: Table.from_numpy({"a": np.arange(3)}),
                  lambda: read_parquet(sys.argv[1]),
                  lambda: make_mesh(4),
-                 lambda: cpu_table.shard()):
+                 lambda: cpu_table.shard(),
+                 lambda: bd.read_parquet(sys.argv[1]),
+                 lambda: bd.read_csv(sys.argv[2]),
+                 lambda: bd.from_pandas(cpu_table.to_pandas()),
+                 lambda: bd.concat([cpu_table.to_pandas()]),
+                 lambda: frontend_pipeline(sys.argv[1], sys.argv[2])):
         try:
             call()
         except RuntimeError as e:

@@ -599,3 +599,136 @@ def assert_same_table(port, ref, float_rtol: float = 0.0,
             np.testing.assert_array_equal(got, want, err_msg=name)
         if check_vrange:
             assert pc.vrange == rc.vrange, name
+
+
+def canonical_key(key, ids=None):
+    """A plan key with its in-memory sources' ids (FromPandas, a process
+    counter) renumbered by first appearance."""
+    ids = {} if ids is None else ids
+    if isinstance(key, tuple):
+        if len(key) == 2 and key[0] == "from_pandas" and \
+                isinstance(key[1], int):
+            return ("from_pandas", ids.setdefault(key[1], len(ids)))
+        return tuple(canonical_key(k, ids) for k in key)
+    return key
+
+
+@contextlib.contextmanager
+def executed_plans():
+    """Record the optimized plan of every execute() call of either
+    package's plan executor in the block (the frontends import execute
+    when they materialize, so they call the recorded one): yields
+    {"ref": [...], "port": [...]}, each entry the canonical key() of the
+    plan as the executor runs it."""
+    import bodo_tpu.plan.optimizer as ref_opt
+    import bodo_tpu.plan.physical as ref_phys
+    import bodo_tpu_torch.plan.optimizer as port_opt
+    import bodo_tpu_torch.plan.physical as port_phys
+    keys = {"ref": [], "port": []}
+    saved = []
+    for side, phys, opt in (("ref", ref_phys, ref_opt),
+                            ("port", port_phys, port_opt)):
+        def spy(node, optimize_first=True, _orig=phys.execute, _opt=opt,
+                _keys=keys[side]):
+            planned = _opt.optimize(node) if optimize_first else node
+            _keys.append(canonical_key(planned.key()))
+            return _orig(planned, optimize_first=False)
+        saved.append((phys, phys.execute))
+        phys.execute = spy
+    try:
+        yield keys
+    finally:
+        for phys, orig in saved:
+            phys.execute = orig
+
+
+class Frontend:
+    """One package's pandas frontend as the frontend tests drive it: the
+    module (`bd`), the keywords its sources take (`kw`: the port's
+    device), its logical plan nodes (`L`) and its optimizer."""
+
+    def __init__(self, package: str):
+        import importlib
+        self.package = package
+        self.bd = importlib.import_module(f"{package}.pandas_api")
+        self.L = importlib.import_module(f"{package}.plan.logical")
+        self.optimize = importlib.import_module(
+            f"{package}.plan.optimizer").optimize
+        self.kw = {"device": "cpu"} if package == "bodo_tpu_torch" else {}
+
+
+@contextlib.contextmanager
+def no_fallback():
+    """A block in which the pandas frontends' fallback warning is an
+    error, the reference's warning pinned on (its config.warn_fallback
+    reads an environment variable; the port's always warns), so that no
+    program of either package falls back to pandas unseen."""
+    import warnings
+    from bodo_tpu.config import config as ref_config
+    saved = ref_config.warn_fallback
+    ref_config.warn_fallback = True
+    try:
+        with warnings.catch_warnings():
+            warnings.filterwarnings("error",
+                                    message=".*falling back to pandas")
+            yield
+    finally:
+        ref_config.warn_fallback = saved
+
+
+@contextlib.contextmanager
+def frontend_meshes(shards: int, shard_min_rows: int):
+    """Both packages' meshes of `shards` CPU shards, sources of
+    `shard_min_rows` rows or more sharded in both; nothing for 1."""
+    if shards == 1:
+        yield
+        return
+    import jax
+    import bodo_tpu
+    from bodo_tpu_torch.parallel.mesh import make_mesh, use_mesh
+    with bodo_tpu.use_mesh(bodo_tpu.make_mesh(jax.devices()[:shards])), \
+            use_mesh(make_mesh(shards, "cpu")), \
+            both_configs(shard_min_rows=shard_min_rows):
+        yield
+
+
+def run_frontends(prog, label: str):
+    """prog(Frontend) through the reference's frontend, then the port's:
+    returns (the reference's result, the port's, the routes taken),
+    after holding the routes and the optimized key() of every executed
+    plan equal."""
+    with executed_plans() as plans:
+        with reference_routes() as ref_routes:
+            ref = prog(Frontend("bodo_tpu"))
+        routes = port_routes_reset()
+        port = prog(Frontend("bodo_tpu_torch"))
+    assert routes == ref_routes, (label, dict(routes), dict(ref_routes))
+    assert plans["port"] == plans["ref"], label
+    return ref, port, {k: v for k, v in routes.items() if v}
+
+
+def assert_same_result(got, want, float_rtol: float, label: str) -> None:
+    """A frontend result of the port against the reference's: frames,
+    Series and Index equal (index, dtypes, row order, values; floats
+    within `float_rtol`), tuples and lists item by item, scalars
+    likewise."""
+    import pandas as pd
+    if isinstance(want, pd.DataFrame):
+        pd.testing.assert_frame_equal(got, want, check_exact=False,
+                                      rtol=float_rtol, atol=0, obj=label)
+    elif isinstance(want, pd.Series):
+        pd.testing.assert_series_equal(got, want, check_exact=False,
+                                       rtol=float_rtol, atol=0, obj=label)
+    elif isinstance(want, pd.Index):
+        pd.testing.assert_index_equal(got, want, obj=label)
+    elif isinstance(want, (tuple, list)):
+        assert type(got) is type(want) and len(got) == len(want), label
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert_same_result(g, w, float_rtol, f"{label}[{i}]")
+    elif isinstance(want, np.ndarray):
+        np.testing.assert_array_equal(got, want, err_msg=label)
+    elif isinstance(want, (float, np.floating)):
+        np.testing.assert_allclose(got, want, rtol=float_rtol, atol=0,
+                                   err_msg=label)
+    else:
+        assert got == want, (label, got, want)
